@@ -9,7 +9,7 @@ multiple-choice eval set (mc_eval.generate_markov_mc, the min-summed-
 continuation-CE recipe hellaswag.py uses).
 
 The model is sized so the default quantization filter actually engages
-(every attention/MLP linear dim >= 128 — quant/api.py skips sub-MXU-tile
+(every attention/MLP linear dim >= 128 — quant/api.py skips small
 linears), i.e. the quantized configs really train through scaled-INT8/FP8
 matmuls, not silently in bf16.
 
@@ -61,6 +61,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from quantized_training_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     from mc_eval import evaluate_mc, generate_markov_mc
     from quantized_training_tpu import optim, quant
     from quantized_training_tpu.data import BatchLoader

@@ -1,23 +1,18 @@
 """Mesh-collective bandwidth microbenchmark (benchmark_nccl.py analog).
 
 The reference measures NCCL all-reduce GiB/s under torchrun
-(`benchmark_nccl.py:10-36`); the TPU-native equivalent measures XLA
-collectives (psum / all_gather / psum_scatter) over the device mesh —
-ICI within a slice, DCN across hosts.
-
-With one real chip (this environment) pass --cpu to run on a virtual
-8-device host mesh: numbers are then host-memcpy bandwidth, useful only
-to validate the harness, not as a hardware measurement.
+(`benchmark_nccl.py:10-36`); the equivalent here measures XLA
+collectives (psum / all_gather / psum_scatter, handed to NCCL) over a
+mesh of every GPU of the process. Needs at least two GPUs.
 
 Usage:
-  python benchmark_collectives.py [--axis data] [--size_mb 64] [--cpu N]
+  python benchmark_collectives.py [--axis data] [--size_mb 64]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 
 
 def main():
@@ -25,32 +20,19 @@ def main():
     parser.add_argument("--axis", default="data")
     parser.add_argument("--size_mb", type=float, default=64.0)
     parser.add_argument("--n_iters", type=int, default=20)
-    parser.add_argument(
-        "--cpu", type=int, default=0, metavar="N",
-        help="force an N-device virtual CPU mesh (harness validation only)",
-    )
     args = parser.parse_args()
 
-    if args.cpu:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={args.cpu}"
-        )
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
     from quantized_training_tpu.parallel import benchmark_collectives, make_mesh
+    from quantized_training_tpu.utils.runtime import (
+        gpu_name_and_power_limit, require_gpu, setup_compile_cache,
+    )
 
-    n_dev = len(jax.devices())
-    if n_dev < 2:
-        raise SystemExit(
-            f"only {n_dev} device(s); collective benchmarks need >= 2 "
-            "(use --cpu 8 to validate the harness on a virtual mesh)"
-        )
-    mesh = make_mesh({args.axis: n_dev})
-    print(f"devices: {n_dev} x {jax.devices()[0].device_kind}, axis={args.axis!r}")
+    info = require_gpu()
+    setup_compile_cache()
+    if info["count"] < 2:
+        raise SystemExit(f"only {info['count']} GPU; collective benchmarks need >= 2")
+    mesh = make_mesh({args.axis: info["count"]})
+    print(f"{gpu_name_and_power_limit()}; {info}, axis={args.axis!r}")
     results = benchmark_collectives(
         mesh, axis=args.axis, size_mb=args.size_mb, n_iters=args.n_iters
     )

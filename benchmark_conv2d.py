@@ -47,8 +47,14 @@ def main():
     parser.add_argument("--quick", action="store_true")
     args = parser.parse_args()
 
+    from quantized_training_tpu.utils.runtime import (
+        gpu_name_and_power_limit, require_gpu, setup_compile_cache,
+    )
+
+    require_gpu()
+    setup_compile_cache()
     shapes = SHAPES[:3] if args.quick else SHAPES
-    print(f"device: {jax.devices()[0].device_kind}")
+    print(f"device: {gpu_name_and_power_limit()}")
     print("| B,H,W,Cin->Cout k s | bf16 ms | int8 ms | speedup |")
     print("|---|---|---|---|")
     for B, H, W, Cin, Cout, k, s in shapes:

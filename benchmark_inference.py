@@ -20,7 +20,6 @@ import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def log(*a):
@@ -35,6 +34,12 @@ def main():
     parser.add_argument("--new_tokens", type=int, default=128)
     parser.add_argument("--quantize", default=None)
     args = parser.parse_args()
+    from quantized_training_tpu.utils.runtime import (
+        gpu_name_and_power_limit, require_gpu, setup_compile_cache,
+    )
+
+    require_gpu()
+    setup_compile_cache()
 
     from quantized_training_tpu import quant
     from quantized_training_tpu.models import llama, llama_infer
@@ -44,7 +49,7 @@ def main():
         cfg, max_position_embeddings=args.prompt_len + args.new_tokens
     )
     params_host = jax.device_get(llama.init_params(jax.random.PRNGKey(0), cfg))
-    log(f"device: {jax.devices()[0].device_kind}, {args.model}, "
+    log(f"device: {gpu_name_and_power_limit()}, {args.model}, "
         f"quantize={args.quantize}, int8 KV cache")
 
     results = []
@@ -61,19 +66,13 @@ def main():
                 p, t, cfg, args.new_tokens, temperature=0.0
             )
         )
-        try:
-            out = gen(qparams, prompt)
-            np.asarray(jax.device_get(out[0, -1]))  # forced readback
-            ts = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                out = gen(qparams, prompt)
-                np.asarray(jax.device_get(out[0, -1]))
-                ts.append(time.perf_counter() - t0)
-            dt = min(ts)
-        except Exception as e:
-            log(f"bs={bs}: FAILED {type(e).__name__}: {str(e)[:140]}")
-            continue
+        jax.block_until_ready(gen(qparams, prompt))
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            jax.block_until_ready(gen(qparams, prompt))
+            ts.append(time.perf_counter() - t0)
+        dt = min(ts)
 
         # decompose: time prefill alone (same jit path, 0 new tokens is not
         # supported by scan; approximate with 1 token)

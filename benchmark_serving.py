@@ -150,8 +150,13 @@ def main():
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args()
 
-    if args.cpu:
+    from quantized_training_tpu.utils.runtime import require_gpu, setup_compile_cache
+
+    if args.cpu:  # harness check only: no number of a CPU run is a device metric
         jax.config.update("jax_platforms", "cpu")
+    else:
+        require_gpu()
+    setup_compile_cache()
 
     from quantized_training_tpu import quant
     from quantized_training_tpu.models import llama

@@ -2,7 +2,7 @@
 //
 // The reference feeds training from torchdata's StatefulDataLoader with a
 // worker process + pinned memory (llm_pretrain.py:153-159); this is the
-// TPU-framework-native equivalent: a C++ library that mmaps the uint16/
+// Equivalent here: a C++ library that mmaps the uint16/
 // uint32 .bin token shards produced by tokenize_data.py, draws a seeded
 // shuffled schedule of (shard, slice) windows, and assembles int32
 // (tokens, labels) batches in background threads into a bounded queue so

@@ -54,6 +54,10 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from quantized_training_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
+
     import dataclasses
 
     import jax.numpy as jnp

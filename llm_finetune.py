@@ -108,20 +108,16 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=2024)
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--cpu", action="store_true")
-    parser.add_argument(
-        "--cache_dir",
-        help="persistent XLA compilation cache dir (reuses compiles across "
-        "jobs; the quantized configs' one-time compile cost amortizes to "
-        "~0 on re-runs — see compile_report.py)")
     args = parser.parse_args()
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    from quantized_training_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
 
     import dataclasses
 

@@ -1,4 +1,4 @@
-"""LLM pretraining driver (the llm_pretrain.py analog, TPU-native).
+"""LLM pretraining driver (the llm_pretrain.py analog).
 
 CLI parity with the reference (llm_pretrain.py:40-74): --quantize +
 --quantize_kwargs JSON, --train_ds JSON, gradient accumulation, LR schedule
@@ -6,10 +6,11 @@ kwargs, grad clipping, checkpoint/resume including dataloader state,
 periodic metrics (loss, grad_norm, lr, tokens/sec, memory), optional
 profiler trace, in-loop hellaswag eval hook.
 
-TPU-native differences: one jitted train step (donated state) instead of
-torch.compile + in-place optimizer; DP/FSDP via a device mesh
-(--mesh '{"data": N}' or '{"fsdp": N}') instead of torchrun DDP/FSDP2;
-JSONL metrics instead of wandb (zero-egress environment).
+Differences: one jitted train step (donated state), compiled ahead of the
+loop, instead of torch.compile + in-place optimizer; DP/FSDP via a device
+mesh (--mesh '{"data": N}' or '{"fsdp": N}') instead of torchrun DDP/FSDP2;
+JSONL metrics instead of wandb (no network needed). ``main(argv)`` can be
+called in-process and returns the run's summary.
 
 Examples:
   python llm_pretrain.py --train_ds '{"type":"synthetic"}' --n_steps 20 \
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="llama2-470m",
                         help="llama2-470m | llama2-1b | path to an HF-format config.json dir")
@@ -70,24 +71,20 @@ def main() -> None:
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--cpu", action="store_true", help="force CPU backend")
-    parser.add_argument(
-        "--cache_dir",
-        help="persistent XLA compilation cache dir (reuses compiles across "
-        "jobs; the quantized configs' one-time compile cost amortizes to "
-        "~0 on re-runs — see compile_report.py)")
     parser.add_argument("--native_loader", action="store_true",
                         help="use the C++ prefetching token loader (make native)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     import jax.numpy as jnp
+
+    from quantized_training_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
 
     from quantized_training_tpu import optim, quant
     from quantized_training_tpu.data import BatchLoader, ShuffleDataset, get_dataset
@@ -228,30 +225,56 @@ def main() -> None:
             return shard_batch((tokens, labels), mesh)
         return jnp.asarray(tokens), jnp.asarray(labels)
 
+    def lr_at(step):
+        return lr_schedule.get_lr(step) if lr_schedule else args.lr
+
+    def key_at(step):
+        return jax.random.fold_in(key, 1_000_000 + step)
+
+    summary = dict(losses=[], step_ms=[])
+    batch = None
+    if step < args.n_steps:
+        # compile ahead of the loop: compile time and the step's memory
+        # plan are reported apart from the steps
+        batch = next_batch()
+        t0 = time.perf_counter()
+        step_fn = step_fn.lower(state, *batch, lr_at(step), key_at(step)).compile()
+        summary["compile_s"] = time.perf_counter() - t0
+        plan = step_fn.memory_analysis()
+        if plan is not None:
+            summary["memory_analysis"] = {
+                k: getattr(plan, k)
+                for k in ("argument_size_in_bytes", "output_size_in_bytes",
+                          "alias_size_in_bytes", "temp_size_in_bytes")
+            }
+        print(f"compiled train step in {summary['compile_s']:.1f} s; "
+              f"memory plan {summary.get('memory_analysis')}")
+
     if args.profile:
         jax.profiler.start_trace(str(save_dir / "trace"))
 
-    time0 = time.time()
+    losses = []
+    time0, logged = time.perf_counter(), step
     tokens_per_batch = args.batch_size * args.seq_len
     while step < args.n_steps:
-        tokens, labels = next_batch()
-        lr = lr_schedule.get_lr(step) if lr_schedule else args.lr
-        state, metrics = step_fn(
-            state, tokens, labels, lr, jax.random.fold_in(key, 1_000_000 + step)
-        )
+        tokens, labels = batch if batch is not None else next_batch()
+        batch = None
+        lr = lr_at(step)
+        state, metrics = step_fn(state, tokens, labels, lr, key_at(step))
+        losses.append(metrics["loss"])
         step += 1
 
         if step % args.log_interval == 0 or step == args.n_steps:
             jax.block_until_ready(metrics["loss"])
-            time1 = time.time()
+            time1 = time.perf_counter()
+            n, logged = step - logged, step
+            summary["step_ms"].append((time1 - time0) / n * 1e3)
             mem = jax.devices()[0].memory_stats() or {}
             log = dict(
                 loss=float(metrics["loss"]),
                 grad_norm=float(metrics["grad_norm"]),
                 lr=lr,
-                tokens_per_second=tokens_per_batch
-                * min(args.log_interval, step)
-                / (time1 - time0),
+                tokens_per_second=tokens_per_batch * n / (time1 - time0),
                 num_tokens_seen_millions=tokens_per_batch * step / 1e6,
                 peak_memory_gb=(mem.get("peak_bytes_in_use", 0)) / 1e9,
             )
@@ -285,6 +308,12 @@ def main() -> None:
         print(f"profile trace written to {save_dir / 'trace'}")
     logger.finish()
     print(f"done; artifacts in {save_dir}")
+    summary["losses"] = [float(l) for l in losses]
+    summary["peak_bytes_in_use"] = (
+        jax.devices()[0].memory_stats() or {}
+    ).get("peak_bytes_in_use")
+    summary["save_dir"] = str(save_dir)
+    return summary
 
 
 if __name__ == "__main__":

@@ -239,7 +239,7 @@ def evaluate_mc(
 if __name__ == "__main__":
     import argparse
 
-    # generation is pure numpy — never touch the (possibly busy) TPU
+    # generation is pure numpy — never touch the (possibly busy) card
     jax.config.update("jax_platforms", "cpu")
 
     p = argparse.ArgumentParser(

@@ -1,13 +1,22 @@
-"""Capture + parse a device trace of one train step (op-level breakdown).
+"""Trace two llama2-1b train steps on the GPU and split the device time
+into buckets (the ``--profile`` torch.profiler flow of the reference,
+llm_pretrain.py:186-188, with the analysis inline).
 
-The TPU equivalent of the reference's ``--profile`` torch.profiler flow
-(llm_pretrain.py:186-188, :262-264), plus an inline analysis pass: traces
-two steps with ``jax.profiler.trace``, then aggregates per-op durations
-from the xplane and prints the top offenders — no TensorBoard needed.
+Each kernel of the step's module is bucketed by what it computes:
+library kernels by name (cuBLAS int8 / bf16 GEMMs, cuDNN attention) and
+XLA fusions by their HLO instruction — GEMM fusions by operand type, the
+rest by the named scope the model code sets (``quantize``, ``norm``,
+``rope``, ``silu_mul``, ``attention``, ``loss``, ``optimizer``). For each
+bucket: ms per step and, for the int8 mixed-precision step, the share of
+the data-sheet roofline against the bucket's least work (``step_work``):
+FLOPs for the int8 GEMMs and cuDNN attention, HBM bytes for the
+memory-bound passes. The device's busy and idle share come from the
+union of the step's kernel intervals.
 
 Usage:
-  python profile_step.py [--quantize mixed_precision] [--model llama2-1b]
-                         [--bs 8] [--seq 2048] [--top 30] [--out DIR]
+  python profile_step.py [--quantize mixed_precision] [--quantize_kwargs '{}']
+                         [--bs 4] [--seq 2048] [--out runs/profile]
+  python profile_step.py --analyze runs/profile   # re-read a trace
 """
 
 from __future__ import annotations
@@ -15,192 +24,209 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import glob
-import sys
+import json
+import re
 from collections import defaultdict
+from pathlib import Path
 
-import numpy as np
+N_STEPS = 2
+SCOPES = ("attention", "quantize", "norm", "rope", "silu_mul", "loss", "optimizer")
+FAMILY = "quantize+norm+rope+silu_mul"
 
 
-def main():
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--quantize", default=None)
-    parser.add_argument("--quantize_kwargs", default=None,
-                        help="JSON kwargs for the scheme config "
-                        '(e.g. \'{"grad_weight": false}\')')
-    parser.add_argument("--model", default="llama2-1b")
-    parser.add_argument("--bs", type=int, default=8)
-    parser.add_argument("--accum", type=int, default=1,
-                        help="micro-steps: tokens become [accum, bs, seq]")
-    parser.add_argument("--seq", type=int, default=2048)
-    parser.add_argument("--top", type=int, default=30)
-    parser.add_argument("--out", default=None, help="trace dir (kept for TensorBoard)")
-    args = parser.parse_args()
+def parse_hlo(hlo: str) -> dict[str, str]:
+    """instruction name -> its line in the compiled HLO; kernels are named
+    after their instruction with '.' and '-' as '_'."""
+    out = {}
+    for line in hlo.splitlines():
+        m = re.match(r"\s*(?:ROOT )?%?([\w.\-]+) = (.*)", line)
+        if m:
+            out[m.group(1)] = m.group(2)
+            out.setdefault(re.sub(r"[.\-]", "_", m.group(1)), m.group(2))
+    return out
 
+
+def classify(kernel: str, line: str, hlo: dict[str, str]) -> str:
+    if re.search(r"sdpa|fmha|flash|cudnn", kernel):
+        return "attention (cuDNN)"
+    if re.search(r"i8i32|imma|_s8_", kernel):
+        return "int8 GEMM"
+    if re.search(r"nvjet|xmma_gemm|cutlass|gemm_bf16|sgemm", kernel):
+        return "bf16/f32 GEMM"
+    if "gemm_fusion" in kernel or "__triton_gemm" in line:
+        first = re.findall(r"%([\w.\-]+)", line.partition("(")[2])[:2]
+        int8 = any(hlo.get(o, "").startswith("s8[") for o in first)
+        return "int8 GEMM" if int8 else "bf16/f32 GEMM"
+    meta = re.search(r'op_name="([^"]*)"', line)
+    op_name = meta.group(1) if meta else ""
+    for scope in SCOPES:
+        if f"/{scope}/" in op_name or op_name.endswith(f"/{scope}"):
+            return scope
+    return "other" if line else "unmatched"
+
+
+def step_work(meta: dict) -> dict[str, tuple[str, float]]:
+    """Least work of each bucket of the llama2-1b int8 mixed-precision
+    step with remat (the forward runs twice): ("flops", n) for the int8
+    GEMMs and cuDNN attention (bwd at 2.5x fwd), ("bytes", n) for the
+    memory-bound passes — each tensor read and written once per pass:
+    bf16 -> int8 quantize 3 B/element (both-axis 4 B), norm 4 B fwd / 6 B
+    bwd, rope 4 B, silu*mul 6 B fwd / 10 B bwd, AdamW 22 B/param. XLA
+    fuses norm, rope and silu*mul into the quantize passes in varying
+    ways, so the four are one family (FAMILY)."""
+    from quantized_training_tpu.models import llama
+
+    c = llama.LLAMA2_1B
+    B, S = meta["bs"], meta["seq"]
+    T, L = B * S, c.num_hidden_layers
+    hd, D, F = c.head_dim, c.hidden_size, c.intermediate_size
+    Hh, KVh = c.num_attention_heads * hd, c.num_key_value_heads * hd
+    w = D * (Hh + 2 * KVh) + D * Hh + 3 * D * F  # decoder linear weights
+    acts = T * (2 * D + Hh + F)  # linear inputs (q/k/v and gate/up share one)
+    out_grads = T * (Hh + 2 * KVh + D + 2 * F + D)
+    quantize = 2 * 3 * (acts + w) + 4 * out_grads + 3 * (w + acts)
+    n_params = L * (w + 2 * D) + 2 * c.vocab_size * D + D
+    norm = L * 2 * T * D * (2 * 4 + 6) + T * D * (4 + 6)
+    rope = L * 3 * 4 * T * (Hh + KVh)
+    silu_mul = L * T * F * (2 * 6 + 10)
+    return {
+        "int8 GEMM": ("flops", 4 * 2 * T * w * L),
+        "attention (cuDNN)": ("flops", 4.5 * L * 4 * B * c.num_attention_heads * S * S * hd / 2),
+        FAMILY: ("bytes", L * quantize + norm + rope + silu_mul),
+        "optimizer": ("bytes", 22 * n_params),
+    }
+
+
+def trace_step(args, out: Path) -> dict:
+    """Compile, warm and trace two steps; writes the HLO and the trace
+    under ``out`` and returns the run's metadata."""
     import jax
     import jax.numpy as jnp
 
     from quantized_training_tpu import optim, quant
     from quantized_training_tpu.models import llama
     from quantized_training_tpu.train import init_train_state, make_train_step
+    from quantized_training_tpu.utils.runtime import (
+        gpu_name_and_power_limit, require_gpu, setup_compile_cache,
+    )
 
-    cfg = {"llama2-1b": llama.LLAMA2_1B, "llama2-470m": llama.LLAMA2_470M}[args.model]
-    cfg = dataclasses.replace(cfg, max_position_embeddings=args.seq, remat=True)
+    info = require_gpu()
+    setup_compile_cache()
+    cfg = dataclasses.replace(llama.LLAMA2_1B, max_position_embeddings=args.seq, remat=True)
     params = llama.init_params(jax.random.PRNGKey(0), cfg)
-    import json
-
-    qkw = json.loads(args.quantize_kwargs) if args.quantize_kwargs else {}
-    qparams = quant.quantize_params(params, args.quantize, **qkw)
-    optimizer = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    qparams = quant.quantize_params(params, args.quantize, **args.quantize_kwargs)
+    optimizer = optim.adamw()
     state = init_train_state(qparams, optimizer)
-    step_fn = make_train_step(cfg, optimizer)
-    shape = (
-        (args.accum, args.bs, args.seq) if args.accum > 1
-        else (args.bs, args.seq)
-    )
-    tokens = jax.random.randint(
-        jax.random.PRNGKey(1), shape, 0, cfg.vocab_size, jnp.int32
-    )
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (args.bs, args.seq), 0, cfg.vocab_size)
     labels = jnp.roll(tokens, -1, axis=-1)
-    key = jax.random.PRNGKey(2)
+    keys = jax.random.split(jax.random.PRNGKey(2), N_STEPS + 1)
+    step_fn = make_train_step(cfg, optimizer).lower(state, tokens, labels, 1e-4, keys[0]).compile()
+    (out / "step.hlo.txt").write_text(step_fn.as_text())
+    state, m = step_fn(state, tokens, labels, 1e-4, keys[0])
+    jax.block_until_ready(m)
+    with jax.profiler.trace(str(out / "trace")):
+        for i in range(N_STEPS):
+            state, m = step_fn(state, tokens, labels, 1e-4, keys[i + 1])
+        jax.block_until_ready(m)
+    meta = dict(card=gpu_name_and_power_limit(), device=info, scheme=args.quantize,
+                kwargs=args.quantize_kwargs, bs=args.bs, seq=args.seq)
+    (out / "meta.json").write_text(json.dumps(meta))
+    return meta
 
-    def sync(m):
-        np.asarray(jax.device_get(m["loss"]))
 
-    # lower BEFORE running: step_fn donates state, and .lower() on donated
-    # (deleted) arrays is unreliable; compile() later is a cache hit
-    lowered = step_fn.lower(state, tokens, labels, 1e-4, key)
-    state, m = step_fn(state, tokens, labels, 1e-4, key)
-    sync(m)
-    print("compiled; tracing 2 steps...", file=sys.stderr, flush=True)
+def analyze(out: Path, meta: dict) -> dict:
+    import jax
 
-    outdir = args.out or f"/tmp/trace_{args.quantize or 'bf16'}"
-    with jax.profiler.trace(outdir):
-        for i in range(2):
-            state, m = step_fn(state, tokens, labels, 1e-4, jax.random.fold_in(key, i))
-        sync(m)
+    from quantized_training_tpu.utils.runtime import peaks
 
-    traces = sorted(glob.glob(f"{outdir}/**/*.xplane.pb", recursive=True))
-    if not traces:
-        raise SystemExit(
-            f"no .xplane.pb produced under {outdir} — device-side profiling "
-            "may be unsupported in this environment"
-        )
-    path = traces[-1]
-    pd = jax.profiler.ProfileData.from_serialized_xspace(open(path, "rb").read())
+    pk = peaks(meta["device"]["kind"])
+    hlo = parse_hlo((out / "step.hlo.txt").read_text())
+    path = sorted(glob.glob(f"{out}/trace/**/*.xplane.pb", recursive=True))[-1]
+    pd = jax.profiler.ProfileData.from_file(path)
+    planes = [p for p in pd.planes if p.name.startswith("/device:GPU:0")]
+    if not planes:
+        raise SystemExit(f"no GPU plane in the trace: {[p.name for p in pd.planes]}")
+    evs = []
+    for line in planes[0].lines:
+        for e in line.events:
+            st = dict(e.stats)
+            if str(st.get("hlo_module", "")).startswith("jit_train_step"):
+                op = st.get("hlo_op")
+                kernel = e.name if op in (None, "command_buffer") else op
+                evs.append((e.start_ns, e.duration_ns, kernel))
+    evs.sort()
 
-    import re
+    busy, end = 0, 0
+    for start, dur, _ in evs:
+        busy += max(0, start + dur - max(start, end))
+        end = max(end, start + dur)
+    window = end - evs[0][0]
 
-    # Classify ops against the compiled HLO: the trace's event names
-    # truncate operand lists, which mislabels the wgrad GEMMs that XLA
-    # output-fuses into the stacked-grad dynamic-update-slice (their
-    # first displayed operand is the bf16[L,...] buffer, hiding the s8
-    # GEMM operands). The HLO text carries the full operand dtypes AND
-    # the op_name metadata (".../dot_general" etc.), so look each leaf
-    # up there first. Compiling here is cheap: the step was just
-    # compiled, so this hits the in-process executable cache.
-    hlo_info: dict[str, str] = {}
-    try:
-        hlo = lowered.compile().as_text()
-        for line in hlo.splitlines():
-            m = re.match(r"\s*%?([\w.\-]+) = (.*)", line)
-            if m:
-                hlo_info[m.group(1)] = m.group(2)
-    except Exception as e:  # profiling still works, categories degrade
-        print(f"HLO lookup unavailable ({e}); name-only categories",
-              file=sys.stderr)
+    buckets = defaultdict(lambda: dict(ms=0.0, n=0))
+    top = defaultdict(float)
+    for _, dur, kernel in evs:
+        line = hlo.get(kernel, "")
+        bucket = classify(kernel, line, hlo)
+        b = buckets[bucket]
+        b["ms"] += dur / 1e6 / N_STEPS
+        b["n"] += 1
+        top[(bucket, kernel)] += dur / 1e6 / N_STEPS
 
-    def category(name: str) -> str:
-        """Bucket a leaf HLO event into the step-budget categories."""
-        head = name.partition(" = ")[0]
-        base = re.match(r"%([\w.\-]+)", head)
-        base = base.group(1) if base else head
-        if "splash" in base or base.startswith("pallas_call"):
-            return "attention kernels (splash fwd/bwd)"
-        if base.startswith(("jit_fused_adamw", "fused_adamw")):
-            return "optimizer (fused adamw)"
-        if base.startswith(
-            ("jit_quantize", "quantize_int8", "jit_rmsnorm", "rmsnorm_quant",
-             "jit_silu", "silu_mul_quant", "silu_mul_bwd_quant",
-             "jit_layer_norm", "layer_norm_quant", "jit_gelu", "gelu_quant",
-             "jit_ungroup", "ungroup_quant", "ungroup_amax")
-        ):
-            return "quantize + fused-producer kernels"
-        if base.startswith(("jit_rope", "rope_group", "rope_ungroup")):
-            return "attention-adjacent (rope / head layouts / residual stacking)"
-        if base.startswith("while"):
-            return "scan wrapper self-time"
-        if ("copy-start" in base or "copy-done" in base or "slice-start" in base
-                or "slice-done" in base):
-            return "async DMA self-time (overlapped)"
-        rest = hlo_info.get(base, "")
-        if rest:
-            # op_name metadata tells us it lowers a dot_general; operand
-            # dtypes come from each operand's own definition line
-            is_dot = "/dot_general" in rest
-            has_s8 = any(
-                hlo_info.get(op, "").startswith(("s8[", "(s8["))
-                for op in re.findall(r"%([\w.\-]+)", rest.partition("(")[2])
-            )
-            if is_dot and has_s8:
-                return "int8 GEMM fusions (fwd/dgrad/wgrad + fused epilogues)"
-            if is_dot or "convolution" in base:
-                return "bf16 matmul (lm_head / embed / unquantized)"
-        else:
-            rest = name.partition(" = ")[2]
-            if "fusion" in base and re.search(r"[(,] ?s8\[", rest):
-                return "int8 GEMM fusions (fwd/dgrad/wgrad + fused epilogues)"
-            if "convolution" in base or re.match(r"dot\b", base):
-                return "bf16 matmul (lm_head / embed / unquantized)"
-        if re.search(r"bf16\[\d+,\d+,2048,64\]|f32\[\d+,\d+,\d+,2048[,\]]", name):
-            return "attention-adjacent (rope / head layouts / residual stacking)"
-        return "other (elementwise, norm-bwd, loss scan, bookkeeping)"
+    work = step_work(meta) if meta["scheme"] == "mixed_precision" and not meta["kwargs"] else {}
+    busy_ms = busy / 1e6 / N_STEPS
+    rows = []
+    for bucket, b in sorted(buckets.items(), key=lambda kv: -kv[1]["ms"]):
+        row = dict(bucket=bucket, ms_per_step=b["ms"], share_of_busy=b["ms"] / busy_ms,
+                   kernels_per_step=b["n"] / N_STEPS)
+        kind, n = work.get(bucket, (None, 0.0))
+        if kind == "flops":
+            peak = pk["int8_tops"] if bucket == "int8 GEMM" else pk["bf16_tflops"]
+            row.update(least_tflop=n / 1e12, achieved_tflops=n / b["ms"] / 1e9,
+                       roofline_share=n / (peak * 1e12) / (b["ms"] / 1e3))
+        elif kind == "bytes":
+            row.update(least_gbytes=n / 1e9, achieved_gbps=n / b["ms"] / 1e6,
+                       roofline_share=n / (pk["hbm_tbps"] * 1e12) / (b["ms"] / 1e3))
+        rows.append(row)
+    family = [r for r in rows if r["bucket"] in FAMILY.split("+")]
+    if FAMILY in work and family:
+        ms = sum(r["ms_per_step"] for r in family)
+        n = work[FAMILY][1]
+        rows.append(dict(bucket=FAMILY, ms_per_step=ms, share_of_busy=ms / busy_ms,
+                         least_gbytes=n / 1e9, achieved_gbps=n / ms / 1e6,
+                         roofline_share=n / (pk["hbm_tbps"] * 1e12) / (ms / 1e3)))
+    summary = dict(**meta, step_window_ms=window / 1e6 / N_STEPS, device_busy_ms=busy_ms,
+                   idle_share=1 - busy / window, buckets=rows,
+                   top_kernels=[dict(bucket=k[0], kernel=k[1], ms=v) for k, v in
+                                sorted(top.items(), key=lambda kv: -kv[1])[:40]])
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    return summary
 
-    # Exclusive self-time: 'XLA Ops' events nest (while wrappers span the
-    # per-iteration leaf ops), so walk the interval stack and subtract
-    # children from their parents — the categorized totals then sum to
-    # the device step time exactly.
-    cats: dict[str, float] = defaultdict(float)
-    ops: dict[str, float] = defaultdict(float)
-    n_steps_traced = 2
-    for plane in pd.planes:
-        if plane.name != "/device:TPU:0":
-            continue
-        for line in plane.lines:
-            if line.name != "XLA Ops":
-                continue
-            evs = sorted(line.events, key=lambda e: (e.start_ns, -e.duration_ns))
-            stack: list[tuple[int, str, str]] = []
-            for ev in evs:
-                while stack and ev.start_ns >= stack[-1][0]:
-                    stack.pop()
-                if stack:
-                    cats[stack[-1][1]] -= ev.duration_ns / 1e6
-                    ops[stack[-1][2]] -= ev.duration_ns / 1e6
-                c = category(ev.name)
-                cats[c] += ev.duration_ns / 1e6
-                ops[ev.name] += ev.duration_ns / 1e6
-                stack.append((ev.end_ns, c, ev.name))
 
-    print(f"trace: {path}")
-    print(f"\n{'ms/step':>9}  step budget (exclusive device time)")
-    for name, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
-        if ms > 0.05:
-            print(f"{ms / n_steps_traced:9.1f}  {name}")
-    print(f"{sum(cats.values()) / n_steps_traced:9.1f}  TOTAL")
-    print(f"\n{'ms/step':>9}  top ops (exclusive)")
-    for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])[: args.top]:
-        print(f"{ms / n_steps_traced:9.1f}  {name[:140]}")
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quantize", default="mixed_precision")
+    ap.add_argument("--quantize_kwargs", type=json.loads, default={})
+    ap.add_argument("--bs", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--out", default="runs/profile")
+    ap.add_argument("--analyze", help="directory of an earlier run to re-read")
+    args = ap.parse_args()
 
-    # per-category op detail: the budget table says WHERE the time goes,
-    # this says what each bucket is made of
-    by_cat: dict[str, list[tuple[float, str]]] = defaultdict(list)
-    for name, ms in ops.items():
-        by_cat[category(name)].append((ms, name))
-    for cat, items in sorted(by_cat.items(), key=lambda kv: -sum(m for m, _ in kv[1])):
-        print(f"\n== {cat} ==")
-        for ms, name in sorted(items, reverse=True)[:12]:
-            if ms / n_steps_traced >= 0.3:
-                print(f"{ms / n_steps_traced:9.1f}  {name[:150]}")
+    if args.analyze:
+        out = Path(args.analyze)
+        meta = json.loads((out / "meta.json").read_text())
+    else:
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        meta = trace_step(args, out)
+    s = analyze(out, meta)
+    print(meta)
+    print(f"window {s['step_window_ms']:.2f} ms/step, busy {s['device_busy_ms']:.2f} ms, "
+          f"idle share {s['idle_share']:.4f}")
+    for r in s["buckets"]:
+        print(json.dumps(r))
+    for t in s["top_kernels"][:25]:
+        print(json.dumps(t))
 
 
 if __name__ == "__main__":

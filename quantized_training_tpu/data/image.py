@@ -13,7 +13,7 @@ Parity surface:
 Transforms are numpy/PIL implementations of the torchvision v2 pipeline the
 reference drivers use (timm_finetune.py:67-76): RandomResizedCrop(224) +
 HFlip for train; Resize(256) + CenterCrop(224) for eval; ImageNet
-normalization. Output is NHWC fp32 (TPU-native channels-last).
+normalization. Output is NHWC fp32 (channels-last).
 """
 
 from __future__ import annotations

@@ -75,17 +75,14 @@ def _attention_over_cache(q, k_c, ks_c, v_c, vs_c, pos):
     S = k_c.shape[1]
     KV = k_c.shape[2]
 
-    # dequantize the whole cache for attention (bf16 MXU); masked positions
-    # have scale 0 so they contribute zeros pre-mask anyway
+    # dequantize the whole cache for attention; masked positions have
+    # scale 0 so they contribute zeros pre-mask anyway
     k_deq = k_c.astype(ks_c.dtype) * ks_c  # [B, S, KV, hd]
     v_deq = v_c.astype(vs_c.dtype) * vs_c
 
     # GQA WITHOUT materializing the head repeat: group the q heads as
-    # [B, T, KV, G, hd] and batch the einsum over the KV dim. A
-    # jnp.repeat here materializes a [B, S, KV, G, hd] (fp32 after the
-    # score einsum's operand promotion) copy of the cache per layer per
-    # decode step — measured ~30 ms/step at bs32 S528 on v5e, the decode
-    # bottleneck.
+    # [B, T, KV, G, hd] and batch the einsum over the KV dim (a jnp.repeat
+    # would copy the dequantized cache G times per layer per step)
     G = H // KV
     qg = q.reshape(B, T, KV, G, hd)
     scores = jnp.einsum(
@@ -114,10 +111,8 @@ def forward_with_cache(
 
     The cache rides the layer scan as CARRY and each layer writes only its
     fresh [T]-token rows via dynamic_update_slice — XLA aliases the carry
-    buffers, so the cache updates in place. (An earlier version scanned
-    over per-layer cache slices and stacked updated slices as scan
-    outputs; that copied the ENTIRE cache every call — ~2.5 ms of a
-    4.6 ms bs32 decode step on v5e.)
+    buffers, so the cache updates in place (scanning per-layer cache
+    slices as scan outputs would copy the entire cache every call).
     """
     B, T = tokens.shape
     x = params["embed"]["embedding"][tokens]
@@ -129,19 +124,14 @@ def forward_with_cache(
 
     # PREFILL fast path (static pos==0): nothing before the fresh tokens
     # exists, so causal attention over the dequantized fresh K/V equals
-    # attention over the cache — route it through the flash/splash kernel
-    # instead of materializing [B, H, T, S] fp32 scores (~250 ms at bs32
-    # T512 on v5e). Attending over dequant(quant(k)) keeps prefill/decode
-    # numerics identical (both see the quantized cache).
-    # NOT taken under tensor parallelism (flash_prefill=False): GSPMD
-    # cannot partition the Pallas kernel over head-sharded operands — the
-    # cache-einsum path partitions cleanly over the 'model' axis.
+    # attention over the cache — route it through llama.attention (the
+    # fused flash kernel on the GPU) instead of materializing
+    # [B, H, T, S] fp32 scores. Attending over dequant(quant(k)) keeps
+    # prefill/decode numerics identical (both see the quantized cache).
+    # flash_prefill=False takes the cache einsum instead (a plain
+    # reference for the kernel).
     use_flash_prefill = (
-        flash_prefill
-        and isinstance(pos, int)
-        and pos == 0
-        and T > 1
-        and llama._resolve_attn_impl("auto", T) != "xla"
+        flash_prefill and isinstance(pos, int) and pos == 0 and T > 1
     )
 
     def layer_fn(carry, lp):
@@ -168,7 +158,7 @@ def forward_with_cache(
         if use_flash_prefill:
             k_deq = (k_q.astype(k_s.dtype) * k_s).astype(q.dtype)
             v_deq = (v_q.astype(v_s.dtype) * v_s).astype(q.dtype)
-            ctx = llama.attention(q, k_deq, v_deq, "auto")
+            ctx = llama.attention(q, k_deq, v_deq)
         else:
             sl = lambda a: jax.lax.dynamic_index_in_dim(a, l, 0, keepdims=False)
             ctx = _attention_over_cache(
@@ -204,6 +194,25 @@ def forward_with_cache(
     return qlinear(x, lm_w), new_cache
 
 
+def prefill(params, prompt: Array, cfg: llama.LlamaConfig, max_len: int, mesh=None):
+    """prompt [B, T] at positions 0..T -> (logits [B, T, V], a KV cache of
+    ``max_len`` positions holding the prompt).
+
+    ``mesh``: tensor-parallel serving — the cache is sharded over the
+    'model' axis (parallel.shard_kv_cache) and attention runs per KV-head
+    group under the mesh (llama.attention); pass params through
+    parallel.shard_params_tp. Call under ``jax.jit``.
+    """
+    cache = KVCache.zeros(cfg, prompt.shape[0], max_len)
+    if mesh is None:
+        return forward_with_cache(params, prompt, cache, 0, cfg)
+    from ..parallel import shard_kv_cache
+
+    cache = shard_kv_cache(cache, mesh)
+    with jax.sharding.use_abstract_mesh(mesh.abstract_mesh):
+        return forward_with_cache(params, prompt, cache, 0, cfg)
+
+
 def generate(
     params,
     prompt: Array,
@@ -214,35 +223,19 @@ def generate(
     key: Array | None = None,
     max_len: int | None = None,
     mesh=None,
-    flash_prefill: bool | None = None,
 ):
     """Greedy (temperature=0) or sampled generation.
 
     prompt [B, T_prompt] int32 -> [B, T_prompt + max_new_tokens].
     One prefill pass + a scanned decode loop, all jittable.
 
-    ``mesh``: tensor-parallel serving — the KV cache is created sharded
-    over the 'model' axis (parallel.shard_kv_cache) and the Pallas
-    prefill fast path is disabled (GSPMD cannot partition it over
-    head-sharded operands); pass params through parallel.shard_params_tp.
+    ``mesh``: tensor-parallel serving (see :func:`prefill`).
     """
     B, T0 = prompt.shape
     max_len = max_len or (T0 + max_new_tokens)
     if key is None:
         key = jax.random.PRNGKey(0)
-    cache = KVCache.zeros(cfg, B, max_len)
-    if mesh is not None:
-        from ..parallel import shard_kv_cache
-
-        cache = shard_kv_cache(cache, mesh)
-        if flash_prefill is None:
-            flash_prefill = mesh.shape.get("model", 1) == 1
-    if flash_prefill is None:
-        flash_prefill = True
-
-    logits, cache = forward_with_cache(
-        params, prompt, cache, 0, cfg, flash_prefill=flash_prefill
-    )
+    logits, cache = prefill(params, prompt, cfg, max_len, mesh)
     last_logits = logits[:, -1].astype(jnp.float32)
 
     def sample(logits, k):

@@ -2,31 +2,29 @@
 
 The reference uses external timm ViTs (timm_finetune.py:138,
 timm_imagenet.py) and quantizes their nn.Linear weights; this is the
-TPU-native equivalent model family with the same quantization surface:
-every linear weight leaf lives under a dict key "w" [out, in] so
+equivalent model family with the same quantization surface: every linear
+weight leaf lives under a dict key "w" [out, in] so
 ``quant.quantize_params`` wraps them (patch-embed included; the
-CLASSIFIER HEAD is excluded by the default sub-MXU-tile filter — its
-[num_classes, D] shape cannot win from int8 and the odd shape triggers
-the slow conv-emitter lowering, measured 3.5x end-to-end slowdown at
-ViT-Huge. The reference quantizes every nn.Linear including the head,
+CLASSIFIER HEAD is excluded by the default small-linear filter of
+quant/api.py. The reference quantizes every nn.Linear including the head,
 timm_finetune.py:141 TODO notwithstanding).
 
 Architecture: standard ViT (patch16 / learnable pos-embed / cls token /
 pre-LN blocks / GELU MLP), sizes matching timm's vit_{tiny,small,base}
-_patch16_224. The patch embedding runs as a reshape + matmul (stride ==
-kernel conv IS a matmul — MXU-native, no conv needed). Encoder blocks run
-under lax.scan like the Llama stack.
+_patch16_224. The patch embedding runs as a reshape + matmul (a conv
+whose stride equals its kernel IS a matmul, so no conv is needed).
+Encoder blocks run under lax.scan like the Llama stack.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 
-from ..quant import gelu_linear, layernorm_linear, qlinear
+from ..quant import qlinear
 
 Array = jax.Array
 
@@ -118,12 +116,8 @@ def _block(cfg: ViTConfig, x, lp, key):
     def lkey(i):
         return jax.random.fold_in(key, i)
 
-    # layer norm fused into the qkv input quantize (all-int8 on TPU);
-    # other schemes fall back to the identical unfused composite
-    qkv = layernorm_linear(
-        x, lp["norm1"]["g"], lp["norm1"]["b"], lp["qkv"]["w"],
-        cfg.layer_norm_eps, bias=lp["qkv"]["b"], key=lkey(0),
-    )
+    h = layer_norm(x, lp["norm1"]["g"], lp["norm1"]["b"], cfg.layer_norm_eps)
+    qkv = qlinear(h, lp["qkv"]["w"], lp["qkv"]["b"], key=lkey(0))
     q, k, v = jnp.split(qkv.reshape(B, S, 3, H, hd), 3, axis=2)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
 
@@ -134,12 +128,9 @@ def _block(cfg: ViTConfig, x, lp, key):
     ctx = jnp.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, D)
     x = x + qlinear(ctx, lp["proj"]["w"], lp["proj"]["b"], key=lkey(1))
 
-    h = layernorm_linear(
-        x, lp["norm2"]["g"], lp["norm2"]["b"], lp["fc1"]["w"],
-        cfg.layer_norm_eps, bias=lp["fc1"]["b"], key=lkey(2),
-    )
-    # gelu fused into the fc2 input quantize
-    x = x + gelu_linear(h, lp["fc2"]["w"], bias=lp["fc2"]["b"], key=lkey(3))
+    h = layer_norm(x, lp["norm2"]["g"], lp["norm2"]["b"], cfg.layer_norm_eps)
+    h = qlinear(h, lp["fc1"]["w"], lp["fc1"]["b"], key=lkey(2))
+    x = x + qlinear(jax.nn.gelu(h), lp["fc2"]["w"], lp["fc2"]["b"], key=lkey(3))
     return x
 
 

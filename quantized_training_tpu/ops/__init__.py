@@ -1,11 +1,9 @@
 """Kernel-level ops (the gn_kernels analog).
 
-Exports mirror kernels/gn_kernels/__init__.py:1-25 with TPU-native
-implementations: XLA-lowered jnp paths plus Pallas MXU kernels selected via
-:func:`set_backend`.
+Exports mirror kernels/gn_kernels/__init__.py:1-25, implemented as
+XLA-lowered jnp paths.
 """
 
-from ._dispatch import set_backend, use_backend
 from .conv import conv2d, int8_conv2d, scaled_int8_conv2d
 from .fp8 import (
     fp8_mm,
@@ -27,8 +25,6 @@ from .mx import (
 from .scaled_mm import int8_mm, scaled_mm, scaled_mm_general, scaled_mm_ref
 
 __all__ = [
-    "set_backend",
-    "use_backend",
     "int8_mm",
     "scaled_mm",
     "scaled_mm_general",

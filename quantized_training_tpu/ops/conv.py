@@ -6,14 +6,21 @@ Contracts (kernels/gn_kernels/triton_conv2d.py:150-214, :385-396):
     per-output-channel fp scale epilogue -> bf16
   - ``conv2d``: generic (bf16/fp32) with fp32 accumulation
 
-Layout: NHWC activations and HWIO weights — the TPU-native "channels-last"
-(the reference demands channels_last for the same reason,
-triton_conv2d.py:209-213). XLA lowers ``lax.conv_general_dilated`` with
-int8 operands + int32 accumulation onto the MXU as an implicit GEMM; the
-scale epilogue fuses into it.
+Layout: NHWC activations and HWIO weights — "channels-last" (the
+reference demands channels_last for the same reason,
+triton_conv2d.py:209-213).
+
+cuDNN offers XLA no s8 x s8 -> s32 convolution (XLA widens the operands
+to s32, which cuDNN refuses), so int8 convs run on bf16 operands (exact
+for int8 values) with fp32 accumulation. A sum of at most 1024 int8
+products stays within 2^24, where fp32 holds every integer, so the input
+channels are split into groups of kh*kw*c <= 1024 terms, each group's
+conv is exact, and the groups are summed in int32.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +28,7 @@ import jax.numpy as jnp
 Array = jax.Array
 
 _DN = ("NHWC", "HWIO", "NHWC")
+_EXACT_TERMS = 1024  # 1024 * 128^2 = 2^24
 
 
 def _norm2(v) -> tuple[int, int]:
@@ -33,18 +41,26 @@ def conv2d(
     stride: int | tuple[int, int] = 1,
     padding: int | tuple[int, int] = 0,
 ) -> Array:
-    """Generic conv: int8 inputs accumulate in int32, floats in fp32."""
+    """Generic conv with fp32 accumulation; int8 inputs give exact int32."""
     stride, padding = _norm2(stride), _norm2(padding)
-    acc = jnp.int32 if x.dtype == jnp.int8 else jnp.float32
-    out = jax.lax.conv_general_dilated(
-        x,
-        w,
+    conv = partial(
+        jax.lax.conv_general_dilated,
         window_strides=stride,
         padding=[(padding[0], padding[0]), (padding[1], padding[1])],
         dimension_numbers=_DN,
-        preferred_element_type=acc,
+        preferred_element_type=jnp.float32,
     )
-    return out if x.dtype == jnp.int8 else out.astype(x.dtype)
+    if x.dtype != jnp.int8:
+        return conv(x, w).astype(x.dtype)
+    kh, kw, cin, _ = w.shape
+    group = _EXACT_TERMS // (kh * kw)
+    assert group >= 1, f"a {kh}x{kw} kernel sums more than {_EXACT_TERMS} terms per channel"
+    x, w = x.astype(jnp.bfloat16), w.astype(jnp.bfloat16)
+    out = None
+    for c in range(0, cin, group):
+        part = conv(x[..., c : c + group], w[:, :, c : c + group]).astype(jnp.int32)
+        out = part if out is None else out + part
+    return out
 
 
 def int8_conv2d(

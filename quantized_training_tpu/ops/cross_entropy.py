@@ -7,16 +7,16 @@ log-softmax residual for the backward (2 GB held across the whole backward),
 and an fp32 dlogits materialization (2 GB) — ~3 GB of peak HBM and several
 GB of avoidable traffic.
 
-TPU-native replacement: scan over token chunks; per chunk compute the
-logits tile [C, V] with fp32 accumulation straight off the MXU, reduce it
+Design: scan over token chunks; per chunk compute the
+logits tile [C, V] with fp32 accumulation straight off the GEMM, reduce it
 to (logsumexp, label-logit) immediately, and keep only a per-token fp32
 ``lse`` [T] as the backward residual. The backward re-computes each logits
-tile (cheap MXU work), forms the softmax gradient in-register, and
+tile (cheap GEMM work), forms the softmax gradient in-register, and
 contracts it into dx / dw per chunk. Peak extra memory is ONE [C, V] tile.
 
 This is the standard "chunked cross entropy" / Liger-style fusion expressed
 as XLA-friendly scan + dots rather than a handwritten kernel — the tiles
-are large MXU matmuls and XLA fuses the row-reductions into the tile
+are large matmuls and XLA fuses the row-reductions into the tile
 consumer, so a Pallas version buys nothing further.
 
 Returns (nll_sum, valid_count) so the caller owns the mean convention
@@ -119,7 +119,7 @@ def _fle_bwd(ignore_index, chunk_target, res, g):
         safe = jnp.clip(l_c, 0, V - 1)
         onehot = jax.nn.one_hot(safe, V, dtype=jnp.float32)
         dl = (p - onehot) * (valid * g_nll)[:, None]
-        dl = dl.astype(x.dtype)  # bf16 operand for the MXU contractions
+        dl = dl.astype(x.dtype)  # bf16 operand for the contractions
         dx_c = jax.lax.dot_general(
             dl, w, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
         ).astype(x.dtype)

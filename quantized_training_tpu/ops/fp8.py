@@ -7,10 +7,10 @@ cutlass_sm120a_fp8.cu:35-217, wrapped at cutlass_mm.py:36-71):
     scale epilogue -> bf16
   - ``quantize_fp8(x, axis, dtype)``: absmax row-wise cast to fp8
 
-TPU note: v5e has no FP8 MXU datapath, so fp8 operands are upcast to bf16
-for the dot (documented perf fallback — numerics match: every fp8 value is
-exactly representable in bf16). On fp8-capable TPUs XLA consumes the fp8
-dot directly via the same code path (preferred_element_type=f32).
+fp8 operands are upcast to bf16 for the dot (numerics match: every fp8
+value is exactly representable in bf16), so these GEMMs run on the bf16
+tensor cores, not the fp8 ones (scaled_mm._dot keeps XLA from folding
+the upcast back into an fp8 GEMM).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .scaled_mm import scaled_mm
+from .scaled_mm import _dot, scaled_mm
 
 Array = jax.Array
 
@@ -27,6 +27,7 @@ E5M2 = jnp.float8_e5m2
 _AMAX = {E4M3: 448.0, E5M2: 57344.0}
 
 
+@jax.named_scope("quantize")
 def quantize_fp8(
     x: Array, *, axis: int = -1, dtype=E4M3, eps: float = 1e-12
 ) -> tuple[Array, Array]:
@@ -38,6 +39,7 @@ def quantize_fp8(
     return q, scale.astype(x.dtype)
 
 
+@jax.named_scope("quantize")
 def quantize_fp8_tile(
     x: Array, *, group: int = 128, dtype=E4M3, eps: float = 1e-12
 ) -> tuple[Array, Array]:
@@ -55,6 +57,7 @@ def quantize_fp8_tile(
     return q.reshape(M, K), scale[..., 0].astype(x.dtype)
 
 
+@jax.named_scope("quantize")
 def quantize_fp8_block(
     x: Array, *, block: int = 128, dtype=E4M3, eps: float = 1e-12
 ) -> tuple[Array, Array]:
@@ -75,12 +78,7 @@ def quantize_fp8_block(
 def fp8_mm(a: Array, b: Array, *, out_dtype=jnp.bfloat16) -> Array:
     """A[M,K] fp8 @ B[K,N] fp8 -> out_dtype (cutlass_mm.py:36-42)."""
     assert a.dtype in (E4M3, E5M2) and b.dtype in (E4M3, E5M2)
-    return jax.lax.dot_general(
-        a.astype(jnp.bfloat16),
-        b.astype(jnp.bfloat16),
-        (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ).astype(out_dtype)
+    return _dot(a, b, ((1,), (0,))).astype(out_dtype)
 
 
 def scaled_fp8_mm(

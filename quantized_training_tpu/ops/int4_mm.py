@@ -8,16 +8,9 @@ kernels/gn_kernels/cutlass_mm.py:25-56):
   - ``scaled_int4_mm(A_packed, B_t_packed, row_scale, col_scale)``:
     fused ``acc.f32 * row_scale[M,1] * col_scale[1,N]`` epilogue -> bf16
 
-TPU has no sub-8-bit MXU datapath, so packed int4 operands are unpacked to
-int8 values (exact) and run on the int8 MXU path. Two backends:
-
-  - ``pallas`` (``ops.pallas_mm.scaled_int4_mm``): unpacks IN-KERNEL, so
-    operands cross HBM at 4 bits/element — the
-    ``cutlass_sm80_int4.cu:32-65`` behavior. The nibble interleave never
-    materializes: the contraction splits into even/odd positions
-    (``acc += A_hi @ B_hi.T + A_lo @ B_lo.T``).
-  - ``xla`` fallback: unpacks in-graph — a separate [.., 2P] int8
-    materialization before the GEMM (2x the packed HBM traffic).
+Hopper has no int4 tensor cores, so packed int4 operands are unpacked to
+int8 values (exact) and run as int8 GEMMs. The unpack is in-graph: XLA
+writes the [.., 2P] int8 operands before the GEMM (twice the packed bytes).
 
 Packing layout: two signed int4 per int8, even element in the HIGH nibble
 (subclasses/mixed_precision.py:121-122). B is taken in transposed-packed
@@ -30,7 +23,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from . import _dispatch
 from .scaled_mm import scaled_mm
 
 Array = jax.Array
@@ -65,17 +57,6 @@ def scaled_int4_mm(
     row_scale: [M] or [M, 1]; col_scale: [N] or [1, N]
     (cutlass_mm.py:50-56 contract).
     """
-    if _dispatch.backend() == "pallas":
-        from . import pallas_mm
-
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            on_tpu = False
-        return pallas_mm.scaled_int4_mm(
-            a_packed, b_t_packed, row_scale, col_scale, out_dtype=out_dtype,
-            interpret=not on_tpu,  # Mosaic lowering is TPU-only
-        )
     a = unpack_int4(a_packed)
     b = unpack_int4(b_t_packed).T  # [K, N]
     rs = row_scale.reshape(-1, 1)

@@ -10,12 +10,12 @@ Behavioral parity with kernels/gn_kernels/utils.py:
   - quantize_nvfp4: 16-element blocks, FP8-E4M3 scales + fp32 tensor scale
     (:146-166)
   - pack_block_scales_nv: the NVIDIA 128x4 swizzled scale layout
-    (:21-26) — kept for kernel-contract parity/interop even though TPU
-    kernels don't need it
+    (:21-26) — kept for kernel-contract parity/interop; no kernel here
+    consumes it
 
-TPU note: there is no FP4 MXU datapath; the matmul ops in fp4_mm.py
-dequantize in-kernel to bf16 and use the MXU. The quantization math here
-is bit-exact with the reference so checkpoints/payloads interop.
+There are no fp4 tensor cores on Hopper; the matmul ops below dequantize
+to bf16 in the graph and run a bf16 GEMM. The quantization math here is
+bit-exact with the reference so checkpoints/payloads interop.
 
 Nibble packing order: LOW nibble = even element, matching the reference's
 packed-in-int32 order (utils.py:66-80: element 0 -> bits 0-3).
@@ -190,9 +190,9 @@ def mxfp4_mm(
     pre-transposed like scaled_int4_mm), E8M0 scales per 32-element
     K-block: scale_a [M, K//32], scale_b [N, K//32]. Optional bias [N].
 
-    TPU has no fp4 MXU datapath, so the kernel dequantizes to bf16 in the
-    graph (LUT + E8M0 exponent scale — XLA fuses this into the matmul's
-    operand pipeline) and runs a bf16 MXU GEMM. fp32 accumulation.
+    There are no fp4 tensor cores on Hopper, so the op dequantizes to
+    bf16 in the graph (LUT + E8M0 exponent scale, fused by XLA) and runs a
+    bf16 GEMM. fp32 accumulation.
     """
     af = dequantize_mxfp4(a_packed, scale_a)  # [M, K] f32
     bf = dequantize_mxfp4(b_t_packed, scale_b)  # [N, K] f32

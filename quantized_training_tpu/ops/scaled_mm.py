@@ -11,22 +11,17 @@ Semantics mirror the reference kernel contracts
   - scale_b: col scale [1, N], tensor scalar (the BitNet ``COL_SCALE_SCALAR``
     path, triton_mm.py:211-215), or tile scale [K/QK, N/QN]
 
-Two backends:
-  - ``xla``: jnp.dot with ``preferred_element_type`` — XLA tiles int8 onto
-    the MXU at 2x bf16 throughput and fuses the fp32 scale epilogue.
-  - ``pallas``: hand-written MXU kernels (ops/pallas_mm.py) with the scale
-    epilogue fused in VMEM; used for the tile-scaled two-accumulator loop
-    and quantize-fused variants.
-
-The backend is selected by :func:`quantized_training_tpu.ops.set_backend`.
+All forms lower through XLA: ``dot_general`` with
+``preferred_element_type`` (int8 -> int32, exact) becomes a cuBLAS(Lt) or
+XLA-generated GEMM, and the fp32 scale epilogue fuses into its consumer.
+fp8 operands are upcast to bf16 before the dot (exact for e4m3/e5m2) and
+the dot is pinned to bf16 inputs with fp32 accumulation (see :func:`_dot`).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from . import _dispatch
 
 Array = jax.Array
 
@@ -50,16 +45,26 @@ def int8_mm(a: Array, b: Array) -> Array:
     )
 
 
-def _mm_f32(a: Array, b: Array) -> Array:
-    """A @ B accumulated at full precision, result fp32."""
+def _dot(a: Array, b: Array, contract, batch=((), ())) -> Array:
+    """``dot_general`` accumulated exactly (int8 -> int32) or in fp32.
+
+    fp8 operands are upcast to bf16 (exact) and every bf16 dot is pinned to
+    the BF16_BF16_F32 algorithm. Without the pin, XLA's GPU compiler folds
+    the upcast back into a cuBLASLt fp8 GEMM, whose fp8 accumulation on
+    Hopper errs by ~1e-4 (relative L2 at K=2048) and by ~1e-3 with its fast
+    accumulation; the pinned GEMM runs on the bf16 tensor cores and errs
+    only by fp32 rounding.
+    """
     if a.dtype in _FP8_TYPES:
-        # No fp8 MXU on v5e — upcast to bf16 (documented perf fallback).
         a = a.astype(jnp.bfloat16)
         b = b.astype(jnp.bfloat16)
-    acc = jax.lax.dot_general(
-        a, b, (((1,), (0,)), ((), ())), preferred_element_type=_accum_dtype(a.dtype)
+    precision = (
+        jax.lax.DotAlgorithmPreset.BF16_BF16_F32 if a.dtype == jnp.bfloat16 else None
     )
-    return acc.astype(jnp.float32)
+    return jax.lax.dot_general(
+        a, b, (contract, batch), precision=precision,
+        preferred_element_type=_accum_dtype(a.dtype),
+    )
 
 
 def scaled_mm(
@@ -85,23 +90,8 @@ def scaled_mm(
         _is_tensor_scale(scale_b) or scale_b.shape == (1, N)
     )
 
-    if a.dtype in _FP8_TYPES or b.dtype in _FP8_TYPES:
-        # no fp8 MXU on v5e; upcast BEFORE backend dispatch in BOTH scale
-        # modes (neither Pallas kernel has an fp8 path)
-        a = a.astype(jnp.bfloat16)
-        b = b.astype(jnp.bfloat16)
-
     if row_col_mode:
-        use_pallas = _dispatch.backend() == "pallas"
-        if not use_pallas and _dispatch.raw_backend() == "tuned" and a.dtype == jnp.int8:
-            from .autotune import pallas_wins
-
-            use_pallas = pallas_wins("scaled_mm", M, K, N, a.dtype)
-        if use_pallas:
-            from . import pallas_mm
-
-            return pallas_mm.scaled_mm(a, b, scale_a, scale_b, out_dtype=out_dtype)
-        acc = _mm_f32(a, b)
+        acc = _dot(a, b, ((1,), (0,))).astype(jnp.float32)
         sa = jnp.reshape(scale_a.astype(jnp.float32), (1, 1) if _is_tensor_scale(scale_a) else (M, 1))
         sb = jnp.reshape(scale_b.astype(jnp.float32), (1, 1) if _is_tensor_scale(scale_b) else (1, N))
         return (acc * sa * sb).astype(out_dtype)
@@ -112,10 +102,6 @@ def scaled_mm(
         f"A[{M},{K}] @ B[{K},{N}]"
     )
     assert K % scale_a.shape[1] == 0 and scale_a.shape[1] == scale_b.shape[0]
-    if _dispatch.backend() == "pallas":
-        from . import pallas_mm
-
-        return pallas_mm.tile_scaled_mm(a, b, scale_a, scale_b, out_dtype=out_dtype)
     return _tile_scaled_mm_xla(a, b, scale_a, scale_b, out_dtype)
 
 
@@ -134,10 +120,9 @@ def scaled_mm_general(
     ``dims = (ca, cb)`` contracts ``a`` over axis ``ca`` and ``b`` over
     axis ``cb`` (each operand quantized along its contraction axis, so the
     scales lie off the reduction dim). Avoids materializing ``x.T`` /
-    ``w.T`` operands: XLA folds the layout choice into the MXU GEMM,
-    where an explicit ``jnp.transpose`` before the quantize costs a full
-    HBM pass (and int8 transposes lower to pathologically slow copies,
-    ~22 ms for [16384,2048] s8 on v5e).
+    ``w.T`` operands: XLA folds the layout choice into the GEMM, where an
+    explicit ``jnp.transpose`` before the quantize costs a full pass over
+    device memory.
 
     scale_a has size a.shape[1-ca] (per out-row), scale_b size
     b.shape[1-cb] (per out-col); scalars broadcast.
@@ -145,44 +130,7 @@ def scaled_mm_general(
     ca, cb = dims
     M = a.shape[1 - ca]
     N = b.shape[1 - cb]
-    if a.dtype in _FP8_TYPES:
-        # no fp8 MXU on v5e — upcast for the dot (same fallback as _mm_f32);
-        # on fp8-capable TPUs XLA consumes the fp8 dot directly. BEFORE any
-        # backend dispatch: the Pallas kernel has no fp8 path.
-        a = a.astype(jnp.bfloat16)
-        b = b.astype(jnp.bfloat16)
-    if _dispatch.backend() == "pallas":
-        # Explicit opt-in only: the Pallas kernel takes A[M,K] @ B[K,N], so
-        # non-standard contraction dims pay a materialized int8 transpose
-        # here — the XLA default path folds the layout into the GEMM instead.
-        from . import pallas_mm
-
-        a_std = a if ca == 1 else a.T
-        b_std = b if cb == 0 else b.T
-        return pallas_mm.scaled_mm(a_std, b_std, scale_a, scale_b, out_dtype=out_dtype)
-    if _dispatch.raw_backend() == "tuned" and a.dtype == jnp.int8:
-        # per-shape data-driven dispatch: every contraction form routes to
-        # its Pallas kernel when the autotune cache measured it faster
-        # than XLA at this exact shape — the canonical (1,0) grad_input
-        # form via scaled_mm, the stored-layout (0,0) grad_weight /
-        # (1,1) fwd forms via scaled_mm_dims (no materialized transpose)
-        from .autotune import pallas_wins
-
-        name = {(1, 0): "scaled_mm", (0, 0): "scaled_mm_lhsT",
-                (1, 1): "scaled_mm_rhsT"}.get(dims)
-        if name and pallas_wins(name, M, a.shape[ca], N, a.dtype):
-            from . import pallas_mm
-
-            if dims == (1, 0):
-                return pallas_mm.scaled_mm(
-                    a, b, scale_a, scale_b, out_dtype=out_dtype
-                )
-            return pallas_mm.scaled_mm_dims(
-                a, b, scale_a, scale_b, dims=dims, out_dtype=out_dtype
-            )
-    acc = jax.lax.dot_general(
-        a, b, (((ca,), (cb,)), ((), ())), preferred_element_type=_accum_dtype(a.dtype)
-    ).astype(jnp.float32)
+    acc = _dot(a, b, ((ca,), (cb,))).astype(jnp.float32)
     sa = jnp.reshape(scale_a.astype(jnp.float32), (1, 1) if _is_tensor_scale(scale_a) else (M, 1))
     sb = jnp.reshape(scale_b.astype(jnp.float32), (1, 1) if _is_tensor_scale(scale_b) else (1, N))
     return (acc * sa * sb).astype(out_dtype)
@@ -191,11 +139,12 @@ def scaled_mm_general(
 def _tile_scaled_mm_xla(
     a: Array, b: Array, scale_a: Array, scale_b: Array, out_dtype
 ) -> Array:
-    """XLA fallback for tile-scaled matmul.
+    """Tile-scaled matmul in XLA.
 
-    Computes per-K-block partial products (batched over K blocks on the MXU)
-    then applies block scales and reduces — the two-accumulator structure of
-    triton_mm.py:288-331 expressed as a batched dot.
+    Computes per-K-block partial products (one batched GEMM over the K
+    blocks), then applies the block scales and reduces — the
+    two-accumulator structure of triton_mm.py:288-331 expressed as a
+    batched dot. The fp32 partials [K/QK, M, N] are materialized.
     """
     M, K = a.shape
     N = b.shape[1]
@@ -205,16 +154,12 @@ def _tile_scaled_mm_xla(
 
     a3 = a.reshape(M, n_qk, qk).transpose(1, 0, 2)  # [KB, M, qk]
     b3 = b.reshape(n_qk, qk, N)  # [KB, qk, N]
-    part = jax.lax.dot_general(
-        a3,
-        b3,
-        (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=_accum_dtype(a.dtype),
-    ).astype(jnp.float32)  # [KB, M, N]
+    part = _dot(a3, b3, ((2,), (1,)), ((0,), (0,))).astype(jnp.float32)  # [KB, M, N]
 
     sa = jnp.repeat(scale_a.astype(jnp.float32), qm, axis=0).T  # [KB, M]
     sb = jnp.repeat(scale_b.astype(jnp.float32), qn, axis=1)  # [KB, N]
-    out = jnp.einsum("kmn,km,kn->mn", part, sa, sb)
+    # a scaled sum over the K blocks (a reduction, not a TF32 matmul)
+    out = jnp.sum(part * sa[:, :, None] * sb[:, None, :], axis=0)
     return out.astype(out_dtype)
 
 
@@ -241,5 +186,5 @@ def scaled_mm_ref(
     return jnp.dot(
         af * expand(scale_a, M, K),
         bf * expand(scale_b, K, N),
-        precision="highest",  # TPU fp32 matmul is bf16x3 otherwise
+        precision="highest",  # fp32 matmuls may run in TF32 otherwise
     ).astype(out_dtype)

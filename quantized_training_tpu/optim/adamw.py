@@ -6,11 +6,10 @@ Behavioral parity with other_optim/bf16_sr.py:
   3. BF16 params are written back with stochastic rounding via the
      int32 add-random-16-bits-then-truncate trick (bf16_sr.py:108-122)
 
-TPU-native design: a functional optimizer — ``step(grads, state, params,
-lr, key) -> (new_params, new_state)`` — fused into the jitted train step
-(the reference needed a per-param torch.compile; here XLA fuses the whole
-tree update). A Pallas fused update kernel using ``pltpu.prng_random_bits``
-is wired behind the same API for the hot path (ops/pallas_optim.py).
+Design: a functional optimizer — ``step(grads, state, params, lr, key) ->
+(new_params, new_state)`` — fused into the jitted train step (the
+reference needed a per-param torch.compile; here XLA fuses the whole tree
+update, and the SR bits come from ``jax.random``).
 
 Works on any float pytree, including scheme wrappers (MixedPrecisionWeight
 etc.) since those are transparent pytrees of float leaves.
@@ -18,7 +17,6 @@ etc.) since those are transparent pytrees of float leaves.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import jax
@@ -48,19 +46,8 @@ def adamw_bf16_sr(
     eps: float = 1e-8,
     weight_decay: float = 1e-2,
     bf16_stochastic_rounding: bool = True,
-    backend: str = "auto",  # 'auto' | 'xla' | 'pallas' (fused kernel)
 ) -> Optimizer:
     b1, b2 = betas
-
-    def _use_pallas() -> bool:
-        if backend == "pallas":
-            return True
-        if backend == "xla":
-            return False
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:
-            return False
 
     def init(params):
         zeros = lambda t: jax.tree.map(
@@ -80,46 +67,10 @@ def adamw_bf16_sr(
         flat_ea = treedef.flatten_up_to(state.exp_avg)
         flat_eas = treedef.flatten_up_to(state.exp_avg_sq)
 
-        use_pallas = _use_pallas()
-        if use_pallas:
-            from ..ops.pallas_optim import fused_adamw_update
-
-            scalars = jnp.stack(
-                [
-                    lr,
-                    jnp.float32(b1),
-                    jnp.float32(b2),
-                    jnp.float32(weight_decay),
-                    jnp.float32(eps),
-                    bc1,
-                    bc2,
-                ]
-            )
-
         new_p, new_ea, new_eas = [], [], []
         for i, (g, p, ea, eas) in enumerate(
             zip(flat_g, flat_p, flat_ea, flat_eas)
         ):
-            if use_pallas:
-                sr = p.dtype == jnp.bfloat16 and bf16_stochastic_rounding
-                if sr and key is None:
-                    raise ValueError("bf16 SR writeback requires a PRNG key")
-                if sr:
-                    kbits = jax.random.bits(
-                        jax.random.fold_in(jax.random.fold_in(key, i), count),
-                        (1,),
-                        "uint32",
-                    )
-                    seed = jax.lax.bitcast_convert_type(kbits, jnp.int32)
-                else:
-                    seed = jnp.zeros((1,), jnp.int32)
-                np_, nea_, neas_ = fused_adamw_update(
-                    p, g, ea, eas, scalars, seed, bf16_sr=sr
-                )
-                new_p.append(np_)
-                new_ea.append(nea_)
-                new_eas.append(neas_)
-                continue
             g32 = g.astype(jnp.float32)
             ea32 = ea.astype(jnp.float32) + (1 - b1) * (g32 - ea.astype(jnp.float32))
             eas32 = eas.astype(jnp.float32) + (1 - b2) * (

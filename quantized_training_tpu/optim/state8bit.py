@@ -9,7 +9,7 @@ This implementation uses the same dynamic (cube-law) code layout idea as
 8-bit optimizers — a monotone nonlinear 256-entry codebook gives more
 resolution near zero where second-moment values cluster — realized here as
 a signed/unsigned cubic codebook (x -> x**3 spacing), which is simple,
-branch-free, and invertible via searchsorted on TPU.
+branch-free, and invertible via searchsorted.
 """
 
 from __future__ import annotations

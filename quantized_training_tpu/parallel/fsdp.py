@@ -11,8 +11,8 @@ Reference behavior (subclasses/bitnet.py:83-107):
     runs on int8 tensor cores (:92-107)
   - grads are reduce-scattered back to the shards (FSDP2 framework-side)
 
-TPU-native design: one ``custom_vjp`` wrapping quantize -> all_gather ->
-int8 MXU matmul, executed per-device inside ``shard_map`` over the
+Design: one ``custom_vjp`` wrapping quantize -> all_gather ->
+int8 matmul, executed per-device inside ``shard_map`` over the
 (data, fsdp) mesh:
   fwd:  pmean(scale, 'fsdp') -> ternarize+pack local shard ->
         all_gather(int8-packed payload, 'fsdp') over ICI -> unpack ->

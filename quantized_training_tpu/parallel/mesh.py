@@ -2,7 +2,7 @@
 
 The reference distributes with torchrun + NCCL: DDP gradient all-reduce
 (llm_pretrain.py:126-132) and FSDP2 per-layer param sharding
-(llm_pretrain.py:134-139). TPU-native equivalent: ONE logical mesh with
+(llm_pretrain.py:134-139). Equivalent here: ONE logical mesh with
 axes
 
   - 'data': pure data parallelism — batch sharded, params replicated;

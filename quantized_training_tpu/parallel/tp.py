@@ -1,7 +1,7 @@
 """Tensor-parallel inference sharding over the 'model' mesh axis.
 
 The reference has no tensor parallelism (SURVEY §2.3); this is the
-TPU-native extension for serving: Megatron-style weight sharding where
+An extension for serving: Megatron-style weight sharding where
 the attention/MLP *expansion* matmuls shard their output dim and the
 *contraction* matmuls (o_proj, down_proj) shard their input dim, so the
 only collectives XLA must insert are one psum after o_proj and one after

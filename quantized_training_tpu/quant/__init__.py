@@ -15,14 +15,6 @@ from .api import (
     virtual_params,
 )
 from .bitnet import BitNetPackedWeight, BitNetWeight
-from .fused import (
-    attn_out_linear,
-    mlp_linear,
-    gelu_linear,
-    layernorm_linear,
-    norm_linear_multi,
-    silu_mul_linear,
-)
 from .configs import Int8QTConfig, MixedPrecisionConfig
 from .core import (
     bf16_stochastic_round,
@@ -42,12 +34,6 @@ from .mixed_precision import MixedPrecisionWeight, PreQuantMPWeight
 __all__ = [
     "qlinear",
     "qlinear_multi",
-    "attn_out_linear",
-    "mlp_linear",
-    "norm_linear_multi",
-    "silu_mul_linear",
-    "layernorm_linear",
-    "gelu_linear",
     "quantize_params",
     "virtual_params",
     "merge_masters",

@@ -24,7 +24,6 @@ from __future__ import annotations
 from dataclasses import replace
 
 import jax
-import jax.numpy as jnp
 
 from . import bitnet as _bitnet
 from . import int4 as _int4
@@ -66,18 +65,9 @@ def prequantize_step(params, key: Array | None = None):
 
     ``QT_PREQUANT`` env var (read at trace time): 'both' pre-quantizes
     both axes, 'row'/'col' just one, '0' (DEFAULT) disables — per-matmul
-    dynamic quantization.
-
-    Default is OFF because pre-quantization measured NEUTRAL-TO-NEGATIVE
-    on v5e at llama2-1b bs8 seq2048 (2026-08-17 A/B, fresh process per
-    mode): off 1063.7 ms/step, row-only 1067.7, col-only 1070.8, both
-    1159.6 (-9%). The per-matmul weight quantizes the transform removes
-    (~10 ms of HBM passes) were already fully overlapped with MXU work
-    by XLA, so there is nothing to win back — and materializing BOTH
-    int8 views (+2 GB at 1B params) tips the step over a memory cliff
-    (the trace fills with ~460 MB/s async copies, i.e. host offload).
-    The path stays in-tree, tested, for small-model / high-headroom
-    cases and as the measured record.
+    dynamic quantization. Materializing both int8 views costs 2 bytes per
+    weight element of device memory for the step; whether the saved
+    quantize passes pay for that is not measured on the GPU.
     """
     import os
 
@@ -153,14 +143,10 @@ def _default_filter(path, leaf) -> bool:
     embedding) stay full precision (llm_pretrain.py:122,
     train_utils.py:36-39).
 
-    Also skips sub-MXU-tile linears (any matmul dim < 128 or not a
-    multiple of 32, e.g. ViT classifier heads [45, D] or [1000, D]):
-    dynamic int8 cannot win below one hardware tile, and odd shapes fall
-    off the fused Pallas quantize kernels (whose blocks tile in 32-row
-    steps) onto the jnp path, where XLA fuses the quantize chain INTO the
-    int8 dot and lowers it through a ~10x-slower convolution emitter
-    (measured: ViT-Huge int8 went 3.5x SLOWER than bf16 with the head
-    quantized).
+    Also skips small or oddly shaped linears (any matmul dim < 128 or not
+    a multiple of 32, e.g. ViT classifier heads [45, D] or [1000, D]):
+    the quantize passes cost more than an int8 GEMM of that size can
+    save, and int8 tensor-core GEMMs want dims that are multiples of 16.
     """
     if any(getattr(p, "key", None) == "lm_head" for p in path):
         return False

@@ -5,7 +5,7 @@ Behavioral parity with subclasses/bitnet.py:
     tensor-wise abs-mean fp32 scale at every forward (bitnet.py:121-145)
   - activations dynamically quantized to row-wise INT8 with eps=1e-5
     (bitnet.py:134, the BitNet paper's Figure-3 recipe)
-  - forward runs on the int8 MXU with the scalar col-scale epilogue
+  - forward runs as an int8 GEMM with the scalar col-scale epilogue
     (triton_mm.py:211-215 COL_SCALE_SCALAR path)
   - backward: grad_input via mixed mm with the ternary weight; grad_weight
     from the QUANTIZED activation (bitnet.py:147-168)
@@ -14,7 +14,7 @@ Behavioral parity with subclasses/bitnet.py:
     parallel/fsdp.py for the shard_map collective.
 
 Note the reference composes BitNet linears with a preceding RMSNorm by
-module surgery (train_utils.py:47-71); the TPU build does the same at the
+module surgery (train_utils.py:47-71); this build does the same at the
 model level (models/llama.py has a ``bitnet`` flag that inserts sub-norms).
 """
 

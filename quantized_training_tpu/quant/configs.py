@@ -16,7 +16,7 @@ class Int8QTConfig:
     """INT8 quantized-training config.
 
     ``activation``: 'none' = weight-only (mixed bf16 matmul), 'int8' =
-    dynamic row-wise activation quant + int8 MXU matmul, 'int8_sr' = same
+    dynamic row-wise activation quant + int8 matmul, 'int8_sr' = same
     with stochastic rounding of activations.
     """
 
@@ -35,9 +35,9 @@ class MixedPrecisionConfig:
     with ``scale='row'`` both operands get absmax row scales along the
     contraction axis; ``scale='tile'`` uses the DeepSeek-V3 recipe —
     1x128-group activation scales and 128x128-block weight scales —
-    routed through the tile-scaled matmul. On v5e the fp8 dot upcasts to
-    bf16 (no fp8 MXU; documented fallback — numerics are the fp8 ones,
-    every e4m3 value is exactly representable in bf16).
+    routed through the tile-scaled matmul. The fp8 dot upcasts its
+    operands to bf16 (numerics are the fp8 ones: every e4m3 value is
+    exactly representable in bf16).
 
     ``scale`` is ignored for int8/int4 (always row-wise, the reference's
     layout, subclasses/mixed_precision.py:100-134).

@@ -1,9 +1,8 @@
 """Core quantization numerics (pure jnp, CPU-runnable).
 
-These are the reference-semantics implementations of every quantization
-primitive in the framework. They are used directly on the non-hot paths and
-serve as the correctness oracle for the fused Pallas kernels in
-``quantized_training_tpu.ops``.
+These are the implementations of every quantization primitive in the
+framework, on the hot path as well: XLA fuses each quantize (absmax
+reduce, scale, round, cast) into the surrounding elementwise work.
 
 Behavioral parity targets (cited against the upstream reference repo):
   - int8 absmax row-wise quant:      subclasses/int8.py:13-26
@@ -44,6 +43,7 @@ def stochastic_round_to_int(x: Array, key: Array) -> Array:
 # ---------------------------------------------------------------------------
 
 
+@jax.named_scope("quantize")
 def quantize_int8(
     x: Array,
     *,
@@ -61,45 +61,9 @@ def quantize_int8(
     """
     orig_dtype = x.dtype
 
-    # Hot path: fused Pallas kernels on TPU. Being a custom call, the
-    # quantize cannot be fused by XLA into a producing int8 dot_general —
-    # that fusion lowers through a slow convolution emitter (measured
-    # 31.7 ms vs ~2.5 ms for the bare MXU GEMM on v5e) — and the kernels
-    # do absmax+scale in the minimum HBM passes (see ops/pallas_quant.py).
-    # (an explicit ops.set_backend('xla') opts the quantize out too, so
-    # XLA-vs-Pallas A/B comparisons measure what they claim)
-    from ..ops import _dispatch
-
-    if x.ndim == 2 and axis in (0, 1, -1) and _dispatch.raw_backend() != "xla":
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            on_tpu = False
-        if on_tpu:
-            from ..ops import pallas_quant
-
-            if pallas_quant.supported(x, axis):
-                seed = None
-                if stochastic_rounding:
-                    if key is None:
-                        raise ValueError(
-                            "stochastic_rounding=True requires a PRNG key"
-                        )
-                    # key -> int32 seed for the in-kernel TPU PRNG; noise
-                    # stream differs from jax.random.uniform but SR stays
-                    # unbiased and deterministic in (key,)
-                    seed = jax.lax.bitcast_convert_type(
-                        jax.random.bits(key, (1,), jnp.uint32), jnp.int32
-                    )
-                q, scale = pallas_quant.quantize_int8(
-                    x, axis, eps=eps, sr=stochastic_rounding, seed=seed
-                )
-                return q, scale.astype(orig_dtype)
-
     # absmax reduce on the ORIGINAL dtype: max is exact (pure comparison),
-    # and upcasting x before the reduce would force XLA to materialize an
-    # fp32 copy of the whole tensor (it feeds both the reduce and the
-    # scaling chain) — measured ~1.4x cost on the int8 training hot path
+    # and upcasting x before the reduce could make XLA materialize an fp32
+    # copy of the whole tensor (it feeds both the reduce and the scaling)
     absmax = jnp.max(jnp.abs(x), axis=axis, keepdims=True).astype(jnp.float32)
     scale = absmax / 127.0
     q = x.astype(jnp.float32) / jnp.clip(scale, min=eps)
@@ -129,37 +93,9 @@ def quantize_int8_both(
     """Quantize ``x`` along BOTH axes: -> (q_row, s_row, q_col, s_col).
 
     The mixed-precision backward consumes the same output-grad tensor
-    rowwise (grad_input) and colwise (grad_weight); the fused TPU kernel
-    (ops/pallas_quant.py::quantize_int8_both) does both in 2 HBM reads
-    instead of 3. Numerics are identical to two separate
-    :func:`quantize_int8` calls (non-SR: bit-identical).
+    rowwise (grad_input) and colwise (grad_weight). Numerics are identical
+    to two separate :func:`quantize_int8` calls (non-SR: bit-identical).
     """
-    orig_dtype = x.dtype
-    from ..ops import _dispatch
-
-    if x.ndim == 2 and _dispatch.raw_backend() != "xla":
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            on_tpu = False
-        if on_tpu:
-            from ..ops import pallas_quant
-
-            if pallas_quant.both_supported(x):
-                seed = None
-                if stochastic_rounding:
-                    if key is None:
-                        raise ValueError(
-                            "stochastic_rounding=True requires a PRNG key"
-                        )
-                    seed = jax.lax.bitcast_convert_type(
-                        jax.random.bits(key, (1,), jnp.uint32), jnp.int32
-                    )
-                qr, s_row, qc, s_col = pallas_quant.quantize_int8_both(
-                    x, seed, eps=eps, sr=stochastic_rounding
-                )
-                return qr, s_row.astype(orig_dtype), qc, s_col.astype(orig_dtype)
-
     kr = kc = None
     if stochastic_rounding:
         if key is None:

@@ -3,7 +3,7 @@ activation quantization.
 
 Behavioral parity with subclasses/int8.py:
   - weight stored as (int8 data, per-row scale); forward uses the int data
-    directly (mixed bf16 matmul for 'none', int8 MXU scaled_mm for
+    directly (mixed bf16 matmul for 'none', int8 scaled_mm for
     'int8'/'int8_sr') — int8.py:138-161
   - backward is always bf16-dominant: grad_input via mixed mm with the int
     weight, grad_weight = g.T @ x in bf16 (int8.py:164-180; the scale lies
@@ -14,7 +14,7 @@ Behavioral parity with subclasses/int8.py:
     storage into a differentiable fp "master", grads flow to the master, and
     the updated master is re-quantized (SR) into storage each step.
 
-TPU-native design: :class:`Int8Weight` is a pytree whose ``master`` slot
+Design: :class:`Int8Weight` is a pytree whose ``master`` slot
 carries the differentiable dequantized weight during a train step (None in
 storage form); the linear is a ``custom_vjp`` routing the weight cotangent
 to the master.
@@ -22,7 +22,7 @@ to the master.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from functools import partial
 
 import jax
@@ -80,7 +80,7 @@ def _int8_qt_linear(config: Int8QTConfig, x2d, master, int_data, scale, key):
         return (x2d @ int_data.T.astype(x2d.dtype)) * scale.reshape(1, -1)
     sr = config.activation == "int8_sr"
     x_i8, x_scale = quantize_int8(x2d, axis=-1, stochastic_rounding=sr, key=key)
-    # fused int8 MXU matmul with row x col scale epilogue (int8.py:149-158)
+    # int8 matmul with the row x col scale epilogue (int8.py:149-158)
     return scaled_mm(x_i8, int_data.T, x_scale, scale.reshape(1, -1), out_dtype=x2d.dtype)
 
 

@@ -6,7 +6,7 @@ run as dynamic row-wise-quantized INT8 (or INT4) matmuls, re-quantizing both
 operands per matmul (which is what makes the backward quantizable at all —
 the scale never lies along the reduction dim, mixed_precision.py:100-134).
 
-TPU-native design: the weight stays a plain bf16 array inside a
+Design: the weight stays a plain bf16 array inside a
 :class:`MixedPrecisionWeight` pytree wrapper; the linear is a
 ``jax.custom_vjp`` whose bwd issues the same scaled-matmul kernels.
 """
@@ -65,8 +65,7 @@ def _dynamic_int8_mm(
     scales stay off the reduction dim (mixed_precision.py:100-108).
 
     Explicit contraction dims keep every call transpose-free: the caller
-    never materializes ``x.T`` / ``w.T`` (int8 transposes are
-    pathologically slow XLA copies on TPU).
+    never materializes ``x.T`` / ``w.T``; XLA picks the GEMM layout.
     """
     ka = kb = None
     if sr:
@@ -93,8 +92,8 @@ def _dynamic_fp8_mm(
     ``tile``: DeepSeek-V3 layout — A gets 1x128 group scales along K, B
     128x128 block scales — through ``scaled_mm``'s tile branch. The tile
     branch takes standard [M,K] @ [K,N] operands, so non-standard
-    contraction dims transpose the BF16 inputs first (fp8 on v5e is a
-    numerics/config surface, not a speed path — no fp8 MXU).
+    contraction dims transpose the BF16 inputs first. The fp8 operands
+    are upcast to bf16 for the dot (ops/scaled_mm.py).
     """
     from ..ops.fp8 import quantize_fp8, quantize_fp8_block, quantize_fp8_tile
 
@@ -159,11 +158,7 @@ def _all_int8(config: MixedPrecisionConfig) -> bool:
 def _mp_linear_fwd(config, x2d, w, key):
     # NOTE: when the loss is differentiated, THIS function (not the
     # primal `_mp_linear`) runs in the forward pass — so it must not do
-    # any backward-only work. An earlier version quantized x and w along
-    # both axes here with the fused both-kernel and stashed int8
-    # residuals; since a multi-output custom call cannot be partially
-    # DCE'd, the forward pass paid the colwise passes for nothing
-    # (~19 ms/step at bench shapes).
+    # any backward-only work (e.g. the colwise quantizes of x and w).
     return _mp_linear(config, x2d, w, key), (x2d, w, key)
 
 
@@ -173,10 +168,7 @@ def _mp_linear_bwd(config, res, g):
 
     if config.grad_input and config.grad_weight and config.dtype == "int8":
         # both backward matmuls INT8: g is needed quantized along BOTH
-        # axes (rowwise for grad_input, colwise for grad_weight) — the
-        # fused both-axis kernel reads the bf16 g twice instead of the
-        # 3 passes two separate quantizes would cost. g exists only in
-        # the backward, so the fused kernel never taxes the forward.
+        # axes (rowwise for grad_input, colwise for grad_weight)
         sr = config.stochastic_rounding
         kg = kw = kx = None
         if sr:
@@ -191,8 +183,7 @@ def _mp_linear_bwd(config, res, g):
         )
         # grad_w = g.T @ x expressed transpose-free: contract BOTH over
         # the token dim with g as the LHS, so the result comes out
-        # [out, in] directly — an explicit .T on the [in, out] product
-        # materialized a ~1 ms copy per weight per layer (~80 ms/step)
+        # [out, in] directly (no .T copy of the [in, out] product)
         grad_weight = scaled_mm_general(
             g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype
         )
@@ -222,9 +213,8 @@ _mp_linear.defvjp(_mp_linear_fwd, _mp_linear_bwd)
 def _mp_linear_shared(config: MixedPrecisionConfig, x2d: Array, ws, key: Array):
     """Shared-input multi-linear: y_i = x2d @ ws[i].T with ONE dynamic
     quantization of x2d for all heads (all-int8 config only; the caller
-    guarantees it). XLA does NOT CSE identical quantize custom calls, so
-    without this q/k/v re-quantize the same hidden state three times per
-    step (and gate/up twice) — ~30 ms/step at llama2-1b bs8."""
+    guarantees it): q/k/v (and gate/up) share one quantize of the hidden
+    state, in the forward and in the backward's colwise pass."""
     sr = config.stochastic_rounding
     kx = _subkey(key, 0) if sr else None
     x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=kx)
@@ -300,7 +290,6 @@ def linear_shared(
         key = jax.random.PRNGKey(0)
     batch_dims = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
-    x2d, M = _pad_tokens(x2d)
     if preq:
         outs = _mp_linear_shared_pq(
             cfg, x2d,
@@ -312,30 +301,10 @@ def linear_shared(
             key,
         )
         return [
-            o[:M].reshape(*batch_dims, w.orig.shape[0])
-            for o, w in zip(outs, weights)
+            o.reshape(*batch_dims, w.orig.shape[0]) for o, w in zip(outs, weights)
         ]
     outs = _mp_linear_shared(cfg, x2d, tuple(w.data for w in weights), key)
-    return [
-        o[:M].reshape(*batch_dims, w.data.shape[0])
-        for o, w in zip(outs, weights)
-    ]
-
-
-def _pad_tokens(x2d: Array) -> tuple[Array, int]:
-    """Pad the token dim up to a multiple of 256 (MXU/quantize tiling).
-
-    Models with non-power-of-two token counts (ViT: B x 197 patches)
-    otherwise force tiny quantize blocks and misaligned int8 dot tiles;
-    the pad/slice pair is traced, so autodiff routes the output-grad pad
-    for free. No-op for aligned shapes (all Llama configs)."""
-    M = x2d.shape[0]
-    Mp = -(-M // 256) * 256
-    # only pad at perf-relevant sizes: below that the pad just perturbs
-    # XLA's reduction blocking (breaking exact-passthrough expectations)
-    if Mp == M or M < 1024:
-        return x2d, M
-    return jnp.pad(x2d, ((0, Mp - M), (0, 0))), M
+    return [o.reshape(*batch_dims, w.data.shape[0]) for o, w in zip(outs, weights)]
 
 
 def linear(
@@ -356,15 +325,14 @@ def linear(
         key = jax.random.PRNGKey(0)
     batch_dims = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
-    x2d, M = _pad_tokens(x2d)
     if isinstance(w, PreQuantMPWeight):
         out_features = w.orig.shape[0]
         out = _mp_linear_pq(
             w.config, x2d, w.orig, w.row_q, w.row_s, w.col_q, w.col_s, key
-        )[:M]
+        )
     else:
         out_features = w.data.shape[0]
-        out = _mp_linear(w.config, x2d, w.data, key)[:M]
+        out = _mp_linear(w.config, x2d, w.data, key)
     out = out.reshape(*batch_dims, out_features)
     if bias is not None:
         out = out + bias
@@ -377,9 +345,8 @@ def linear(
 # Weights are CONSTANT within a training step, yet the dynamic scheme
 # re-quantizes every w per matmul: rowwise in the forward (and AGAIN in the
 # remat recompute of the forward inside the backward), colwise in the
-# backward for grad_input. Pre-quantizing each weight once per step —
-# both axes in 2 HBM reads via the fused both-kernel — removes all three
-# passes; the quantized views ride the scan as saved inputs, so remat
+# backward for grad_input. Pre-quantizing each weight once per step
+# removes all three passes; the quantized views ride the scan as saved inputs, so remat
 # never recomputes them. Numerics are IDENTICAL to the dynamic path: the
 # same absmax quantize of the same bf16 weight, just hoisted out of the
 # layer loop (reference semantics: subclasses/mixed_precision.py:100-134
@@ -460,8 +427,7 @@ def _prequant_impl(need_row, need_col, sr, w, key):
 
     def run(f):
         # stacked [L, out, in] weights: vmap the 2D quantize over the
-        # layer axis — inside vmap the tracer is 2D, so the fused Pallas
-        # kernels are hit with one extra (batch) grid dimension
+        # layer axis
         if stacked:
             return jax.vmap(f)(w, keys)
         return f(w, keys)

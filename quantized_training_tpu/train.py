@@ -18,7 +18,6 @@ data-parallel over 'data', parameter-sharded (FSDP) over 'fsdp'
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Any, NamedTuple
 
 import jax
@@ -64,10 +63,18 @@ def make_train_step(
     norm params come back dim-1-sharded), which silently diverges from
     the layout ``shard_state`` documents — and under a multi-process
     mesh that breaks the file-per-rank checkpoint restore, whose target
-    shardings come from the param rule.
+    shardings come from the param rule. The step is traced under the
+    mesh (``jax.sharding.use_abstract_mesh``), so attention runs per shard
+    (``llama.attention``): pass it for every sharded step.
     """
 
     def train_step(state: TrainState, tokens, labels, lr, key):
+        if mesh is None:
+            return _train_step(state, tokens, labels, lr, key)
+        with jax.sharding.use_abstract_mesh(mesh.abstract_mesh):
+            return _train_step(state, tokens, labels, lr, key)
+
+    def _train_step(state: TrainState, tokens, labels, lr, key):
         qparams = state.params
         vparams = virtual_params(qparams)
 
@@ -89,14 +96,9 @@ def make_train_step(
 
             # Accumulate in the GRAD dtype (reference semantics: PyTorch
             # .backward() accumulates into param.grad, which is bf16 for
-            # bf16 params). An fp32 accumulator doubles the scan carry —
-            # 4.4 GB at 1.1B params — and measured on v5e that pushed the
-            # program into XLA's memory-pressure rematerialization pass,
-            # which re-ran forward GEMMs (+270 ms/step of `.rematN` fusion
-            # clones in the bf16 4x4 profile, ~11% of the step) to shrink
-            # live ranges. bf16 accumulation removed the clones; loss-curve
-            # parity is covered by test_grad_accumulation_close_to_large_
-            # batch.
+            # bf16 params). An fp32 accumulator would double the scan
+            # carry (4.4 GB at 1.1B params); loss-curve parity is covered
+            # by test_grad_accumulation_close_to_large_batch.
             zeros = jax.tree.map(
                 lambda p: jnp.zeros(p.shape, p.dtype), vparams
             )
@@ -117,10 +119,11 @@ def make_train_step(
         else:
             grad_norm = global_norm(grads)
 
-        new_v, new_opt = optimizer.step(
-            grads, state.opt_state, vparams, lr, jax.random.fold_in(key, 1)
-        )
-        new_params = commit_params(new_v, qparams, jax.random.fold_in(key, 2))
+        with jax.named_scope("optimizer"):
+            new_v, new_opt = optimizer.step(
+                grads, state.opt_state, vparams, lr, jax.random.fold_in(key, 1)
+            )
+            new_params = commit_params(new_v, qparams, jax.random.fold_in(key, 2))
 
         metrics = {"loss": loss, "grad_norm": grad_norm}
         new_state = TrainState(new_params, new_opt, state.step + 1)

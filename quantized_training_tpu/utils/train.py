@@ -1,8 +1,8 @@
 """Training utilities: LR schedule, grad norm, model stats.
 
 Parity: LRSchedule warmup/hold/decay (train_utils.py:84-120), grad-norm
-(train_utils.py:21-26 — the DTensor .full_tensor() concern disappears on
-TPU: jit output is already global).
+(train_utils.py:21-26 — the DTensor .full_tensor() concern disappears
+here: jit output is already global).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ from quantized_training_tpu.models import llama
 from quantized_training_tpu.train import init_train_state, make_train_step
 from quantized_training_tpu.utils import LRSchedule, load_checkpoint, save_checkpoint
 
-# hidden >= 128 so the default sub-MXU-tile quantization filter still
+# hidden >= 128 so the default small-linear quantization filter still
 # wraps every body linear
 TINY = llama.LlamaConfig(
     vocab_size=256,

@@ -1,4 +1,5 @@
-"""Native C++ token loader tests (skipped if the .so isn't built)."""
+"""Native C++ token loader tests; the library is built from
+cpp/tokenloader.cpp (``make native``) by a fixture."""
 
 import subprocess
 from pathlib import Path
@@ -18,12 +19,14 @@ def shard_dir(tmp_path_factory):
     return d
 
 
-needs_lib = pytest.mark.skipif(
-    not native_loader.available(), reason="libtokenloader.so not built (make native)"
-)
+@pytest.fixture(scope="module", autouse=True)
+def built_library():
+    if not native_loader.available():
+        repo = Path(__file__).resolve().parent.parent
+        subprocess.run(["make", "-s", "native"], cwd=repo, check=True, timeout=300)
+    assert native_loader.available()
 
 
-@needs_lib
 class TestNativeLoader:
     def test_batches_and_window_shift(self, shard_dir):
         dl = native_loader.NativeTokenLoader(shard_dir, seq_len=32, batch_size=4, seed=1)

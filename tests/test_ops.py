@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from quantized_training_tpu import ops
+from quantized_training_tpu.ops.scaled_mm import scaled_mm, scaled_mm_ref
 from quantized_training_tpu.quant import core
 
 
@@ -98,58 +99,71 @@ class TestInt4MM:
         assert rel < 0.2, rel
 
 
-class TestScaledMmGeneralBackend:
-    def test_pallas_opt_in_matches_xla(self):
-        from quantized_training_tpu import ops
-        from quantized_training_tpu.ops.scaled_mm import scaled_mm_general
+def _operands(dtype, shape_a, shape_b, axes, key=0):
+    """Quantized operands with scales along ``axes`` (int8 or fp8 e4m3)."""
+    from quantized_training_tpu.ops import fp8 as fp8_ops
+    from quantized_training_tpu.quant.core import quantize_int8
 
-        k = jax.random.PRNGKey(0)
-        a = jax.random.randint(k, (64, 128), -127, 128, jnp.int8)
-        b = jax.random.randint(jax.random.fold_in(k, 1), (32, 128), -127, 128, jnp.int8)
-        sa = jnp.abs(jax.random.normal(jax.random.fold_in(k, 2), (64, 1))) * 0.01
-        sb = jnp.abs(jax.random.normal(jax.random.fold_in(k, 3), (1, 32))) * 0.01
-        ref = scaled_mm_general(a, b, sa, sb, dims=(1, 1), out_dtype=jnp.float32)
-        # the pallas backend on CPU would need interpret mode; exercise the
-        # dispatch routing via a monkeypatched kernel that records the call
-        import quantized_training_tpu.ops.pallas_mm as pallas_mm
-
-        calls = {}
-        orig = pallas_mm.scaled_mm
-
-        def spy(a2, b2, sa2, sb2, **kw):
-            calls["shapes"] = (a2.shape, b2.shape)
-            return orig(a2, b2, sa2, sb2, interpret=True, **kw)
-
-        try:
-            pallas_mm.scaled_mm = spy
-            with ops.use_backend("pallas"):
-                out = scaled_mm_general(a, b, sa, sb, dims=(1, 1), out_dtype=jnp.float32)
-        finally:
-            pallas_mm.scaled_mm = orig
-        assert calls["shapes"] == ((64, 128), (128, 32))  # b transposed to standard
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    ka, kb = jax.random.split(jax.random.PRNGKey(key))
+    a = jax.random.normal(ka, shape_a, jnp.float32)
+    b = jax.random.normal(kb, shape_b, jnp.float32)
+    q = quantize_int8 if dtype == "int8" else fp8_ops.quantize_fp8
+    a_q, sa = q(a, axis=axes[0])
+    b_q, sb = q(b, axis=axes[1])
+    return a_q, b_q, sa, sb
 
 
-def test_tuned_lookup_respects_vmem_budget():
-    """Every block config the dispatch layer can return — cached, nearest-M,
-    or default — must fit the autotune VMEM working-set budget (a stale
-    cache entry at (2048,256,2048) measured 16.37M scoped VMEM in-program
-    and failed the whole train-step compile)."""
-    import json
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dims", [(1, 1), (1, 0), (0, 0)], ids=["fwd", "dgrad", "wgrad"])
+def test_scaled_mm_general_forms_match_ref(dtype, dims):
+    """Every contraction form of the transpose-free GEMM == scaled_mm_ref on
+    the equivalent standard-layout operands."""
+    from quantized_training_tpu.ops.scaled_mm import scaled_mm_general
 
-    import jax.numpy as jnp
+    M, K, N = 48, 256, 80
+    shape_a = (M, K) if dims[0] == 1 else (K, M)
+    shape_b = (N, K) if dims[1] == 1 else (K, N)
+    a_q, b_q, sa, sb = _operands(dtype, shape_a, shape_b, dims)
+    out = scaled_mm_general(a_q, b_q, sa, sb, dims=dims, out_dtype=jnp.float32)
+    a_std = a_q if dims[0] == 1 else a_q.T
+    b_std = b_q if dims[1] == 0 else b_q.T
+    ref = scaled_mm_ref(a_std, b_std, sa.reshape(-1, 1), sb.reshape(1, -1))
+    assert out.shape == (M, N)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
-    from quantized_training_tpu.ops import autotune as at
 
-    for path in at.TUNED_DIR.glob("*.json"):
-        cache = json.loads(path.read_text())
-        for key in cache:
-            kernel, dt, shape = key.split(":")
-            M, K, N = (int(t) for t in shape.split("x"))
-            elem = jnp.dtype(dt).itemsize
-            bm, bn, bk = at._cap_blocks(tuple(cache[key]["blocks"]), elem)
-            assert at._working_set(bm, bn, bk, elem) <= at._VMEM_BUDGET, key
-    for kernel, blocks in at._DEFAULTS.items():
-        bm, bn, bk = blocks
-        if bk:
-            assert at._working_set(bm, bn, bk, 1) <= at._VMEM_BUDGET, kernel
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_tile_scaled_xla_matches_ref(dtype):
+    """The XLA tile-scaled path (per-K-block partial GEMMs) == the oracle."""
+    from quantized_training_tpu.ops import fp8 as fp8_ops
+
+    M, K, N = 128, 384, 256
+    ka, kb = jax.random.split(jax.random.PRNGKey(5))
+    if dtype == "fp8":
+        a_q, sa = fp8_ops.quantize_fp8_tile(jax.random.normal(ka, (M, K)))
+        b_q, sb = fp8_ops.quantize_fp8_block(jax.random.normal(kb, (K, N)))
+    else:
+        a_q = jax.random.randint(ka, (M, K), -127, 128, jnp.int8)
+        b_q = jax.random.randint(kb, (K, N), -127, 128, jnp.int8)
+        sa = jax.random.uniform(ka, (M, K // 128), minval=0.01, maxval=0.1)
+        sb = jax.random.uniform(kb, (K // 128, N // 128), minval=0.01, maxval=0.1)
+    out = scaled_mm(a_q, b_q, sa, sb, out_dtype=jnp.float32)
+    ref = scaled_mm_ref(a_q, b_q, sa, sb)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 256, 96), (128, 128, 256)])
+def test_int4_path_matches_ref(m, k, n):
+    """Packed int4 -> int8 unpack -> scaled GEMM == the fp32 oracle on the
+    unpacked values."""
+    from quantized_training_tpu.ops.int4_mm import scaled_int4_mm, unpack_int4
+    from quantized_training_tpu.quant.core import quantize_int4_rowwise_absmax
+
+    ka, kb = jax.random.split(jax.random.PRNGKey(6))
+    a_p, sa = quantize_int4_rowwise_absmax(jax.random.normal(ka, (m, k)))
+    b_p, sb = quantize_int4_rowwise_absmax(jax.random.normal(kb, (n, k)))
+    out = scaled_int4_mm(a_p, b_p, sa, sb, out_dtype=jnp.float32)
+    ref = scaled_mm_ref(
+        unpack_int4(a_p), unpack_int4(b_p).T, sa.reshape(-1, 1), sb.reshape(1, -1)
+    )
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-4)

@@ -75,8 +75,8 @@ class TestPreQuantizedWeights:
     the same quantize of the same weight, hoisted out of the layer loop —
     output and grads must be BIT-IDENTICAL to the dynamic path (non-SR).
 
-    Default-off: measured neutral-to-negative on v5e at 1B scale (see
-    prequantize_step's docstring); the path stays tested here."""
+    Default-off (see prequantize_step's docstring); the path stays
+    tested here."""
 
     @pytest.mark.parametrize(
         "toggles",
@@ -281,7 +281,7 @@ class TestBitNet:
 
 class TestParamsAPI:
     def _params(self):
-        # linear dims >= 128: the default filter skips sub-MXU-tile linears
+        # linear dims >= 128: the default filter skips small linears
         k = jax.random.PRNGKey(8)
         return {
             "embed": {"embedding": jax.random.normal(k, (100, 128))},

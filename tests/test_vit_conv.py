@@ -11,7 +11,7 @@ from quantized_training_tpu import optim, quant
 from quantized_training_tpu.models import vit
 from quantized_training_tpu.ops import conv as conv_ops
 
-# hidden >= 128 so the default sub-MXU-tile quantization filter (which
+# hidden >= 128 so the default small-linear quantization filter (which
 # skips any linear with a dim < 128) still wraps the body linears
 TINY_VIT = vit.ViTConfig(
     image_size=32, patch_size=8, hidden_size=128, num_layers=2, num_heads=2,
@@ -86,6 +86,24 @@ class TestConv2d:
             for j in range(8):
                 patch = xp[:, i : i + 3, j : j + 3, :]
                 ref[:, i, j, :] = np.einsum("bhwc,hwco->bo", patch, wf)
+        np.testing.assert_array_equal(np.asarray(out, np.int64), ref)
+
+    @pytest.mark.parametrize("kernel,cin", [(3, 128), (3, 256), (1, 2048)])
+    def test_int8_conv_exact_past_fp32_integer_range(self, kernel, cin):
+        """kh*kw*Cin above 1024 with large same-sign products: one fp32 sum
+        would pass 2^24 and round; the channel groups keep it exact."""
+        k1, k2 = jax.random.split(jax.random.PRNGKey(kernel * cin))
+        x = jax.random.randint(k1, (1, 4, 4, cin), 120, 128, jnp.int8)
+        w = jax.random.randint(k2, (kernel, kernel, cin, 2), 120, 128, jnp.int8)
+        pad = kernel // 2
+        out = conv_ops.int8_conv2d(x, w, padding=pad)
+        xp = np.pad(np.asarray(x, np.int64), ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+        wf = np.asarray(w, np.int64)
+        ref = np.zeros((1, 4, 4, 2), np.int64)
+        for i in range(4):
+            for j in range(4):
+                ref[:, i, j] = np.einsum("bhwc,hwco->bo", xp[:, i : i + kernel, j : j + kernel], wf)
+        assert np.abs(ref).max() > 2**24
         np.testing.assert_array_equal(np.asarray(out, np.int64), ref)
 
     def test_scaled_int8_conv(self):

@@ -1,5 +1,6 @@
 """ViT training/finetuning driver (timm_finetune.py + timm_imagenet.py
-analog, TPU-native).
+analog). ``main(argv)`` can be called in-process and returns the run's
+summary.
 
 CLI parity: --quantize/--quantize_kwargs, cosine LR with warmup
 (timm_finetune.py:24-37), per-epoch validation accuracy
@@ -44,7 +45,7 @@ class CosineSchedule:
         return self.final_lr
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="vit_tiny",
                         help="vit_tiny|vit_small|vit_base|vit_large|vit_huge|vit_giant")
@@ -57,8 +58,7 @@ def main() -> None:
         "--quantize_min_k", type=int, default=0,
         help="selective quantization: only quantize linears whose "
         "contraction dim (in_features) is >= this (SwitchBack-style "
-        "'only the large matmuls' — ViT-Base's K=768 projections sit "
-        "below the dynamic-int8 crossover on v5e, its K=3072 fc2 above)")
+        "'only the large matmuls')")
 
     parser.add_argument("--train_ds", type=json.loads, required=True)
     parser.add_argument("--val_ds", type=json.loads)
@@ -77,20 +77,16 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=2024)
     parser.add_argument("--log_interval", type=int, default=10)
     parser.add_argument("--cpu", action="store_true")
-    parser.add_argument(
-        "--cache_dir",
-        help="persistent XLA compilation cache dir (reuses compiles across "
-        "jobs; the quantized configs' one-time compile cost amortizes to "
-        "~0 on re-runs — see compile_report.py)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    from quantized_training_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
 
     import dataclasses
 
@@ -176,6 +172,7 @@ def main() -> None:
     )
     logger = MetricLogger(save_dir)
 
+    summary = dict(losses=[], step_ms=[])
     step = 0
     time0 = time.time()
     dloader_iter = iter(dloader)
@@ -191,6 +188,7 @@ def main() -> None:
             jax.random.fold_in(key, 1_000_000 + step),
         )
         step += 1
+        summary["losses"].append(loss)
         if step % args.log_interval == 0 or step == args.n_steps:
             jax.block_until_ready(loss)
             time1 = time.time()
@@ -201,6 +199,7 @@ def main() -> None:
                 * min(args.log_interval, step)
                 / (time1 - time0),
             )
+            summary["step_ms"].append((time1 - time0) / min(args.log_interval, step) * 1e3)
             time0 = time1
             logger.log(log, step)
             print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in log.items()))
@@ -217,6 +216,8 @@ def main() -> None:
         logger.log(dict(val_acc=acc), step)
     logger.finish()
     print(f"done; artifacts in {save_dir}")
+    summary["losses"] = [float(l) for l in summary["losses"]]
+    return summary
 
 
 if __name__ == "__main__":
